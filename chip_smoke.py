@@ -3,15 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA solver kernel from
-``dart_planner_tpu_torch/csrc/`` with nvcc, holds it against its plain
-PyTorch version at the bench shapes (4096 scenarios, N=20, K=8 padded with
-4 live spheres: thrusts, positions and velocities to 2e-3 after one Newton
-round, convex and with every hinge on, in both curvature modes, with and
-without a per-scenario velocity cap; aggregates at the full budget),
-drives the port's main path (the two-phase
-``planning.se3_mpc.solve``, the planner facade and the fast path) through
-the kernel, and times kernel against plain loop with CUDA events.
+Builds the hand-written CUDA kernels from ``dart_planner_tpu_torch/csrc/``
+with nvcc (one nvcc per source, started together) and holds each against
+its plain PyTorch version on the card:
+
+- kernel B2, the closed-loop tick block (``ops/cuda_rollout.py``): 2048
+  episodes from non-trivial states with setpoints from a real plan, T=40,
+  T=25 with 2 physics substeps, and a low failsafe trigger (phase 8);
+- kernel B1, the fused solve (``ops/cuda_mpc.py``): at K=11 on the
+  closed-loop fleet's first-replan problems (phase 3e), and at the solve
+  bench's shapes (4096 scenarios, N=20, K=8 padded with 4 live spheres:
+  one Newton round, convex and with every hinge on, in both curvature
+  modes, with and without a per-scenario velocity cap; aggregates at the
+  full budget; phase 3).
+
+It drives both main paths of the port with the launch counts set to 0 just
+before and read just after: the closed-loop Monte-Carlo with perceived
+obstacle worlds (``sim.worlds.monte_carlo_with_worlds``, 2048 episodes of 60
+replans, phase 9), and the two-phase ``planning.se3_mpc.solve`` with the
+planner facade and the fast path (phases 4-6). Phases 7 and 10 time the
+kernels against their plain versions with CUDA events, and the
+Monte-Carlo's episodes/s on the host clock.
 
 Each phase prints one line. The line before the last is the per-kernel JSON
 record; the last line is ``{"ok": true, "device": {...}}``, printed only
@@ -29,6 +41,11 @@ import time
 
 B_BENCH = 4096
 LIVE_SPHERES = 4
+B_MC = 2048  # the Monte-Carlo fleet of the JAX package's bench
+MC_START = (0.0, 0.0, 3.0)
+MC_GOAL = (6.0, 3.0, 4.0)
+# the JAX package's records on this fleet (BENCH_r05.json; docs/quality.md)
+MC_RECORD = {"success": 0.9937, "crash": 0.0049, "rmse": 0.0382, "clearance": 1.066}
 
 
 class SmokeFailure(Exception):
@@ -102,55 +119,366 @@ def cuda_time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def run() -> dict:
+def random_tick_inputs(ctrl_cfg, B: int, T: int, seed: int, dev) -> tuple:
+    """Non-trivial tick-block inputs on ``dev``: attitudes up to +-0.5 rad,
+    omega ~ N(0, 2) rad/s, v ~ N(0, 2) m/s, integrals inside their caps,
+    failsafe counts over 0-120, setpoints from a kernel solve around those
+    states, and 3 true spheres per episode, the second of every 7th
+    episode inactive."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SmokeFailure("torch.cuda.is_available() is False: no GPU to test")
+    from dart_planner_tpu_torch.control import geometric
+    from dart_planner_tpu_torch.ops import cuda_rollout, so3
+    from dart_planner_tpu_torch.planning import se3_mpc
+    from dart_planner_tpu_torch.sim import physics
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    pos = t(rng.normal(0, 2, (B, 3)) + [0, 0, 4])
+    vel = t(rng.normal(0, 2, (B, 3)))
+    rb = physics.RigidBodyState(
+        position=pos, velocity=vel,
+        rotation=so3.euler_to_rotmat(t(rng.uniform(-0.5, 0.5, (B, 3)))),
+        angular_velocity=t(rng.normal(0, 2, (B, 3))),
+    )
+    caps = np.asarray(ctrl_cfg.max_integral_per_axis, np.float32)
+    ctrl = geometric.ControllerState.zeros(ctrl_cfg, (B,), device=dev).replace(
+        integral_vel_error=t(rng.uniform(-0.9, 0.9, (B, 3)) * caps),
+        last_torque_saturated=t(rng.integers(0, 2, (B, 3))) > 0.5,
+        failsafe_count=t(rng.integers(0, 121, B)).to(torch.int32),
+        last_valid_thrust=t(rng.uniform(10.0, 20.0, B)),
+    )
+    mpc = se3_mpc.SE3MPCConfig(tail_iterations=0)
+    goal = t(rng.normal(0, 4, (B, 3)) + [0, 0, 4])
+    res = se3_mpc.solve(mpc, se3_mpc.make_problem(pos, vel, goal, config=mpc),
+                        method="cuda")
+    sp = cuda_rollout.setpoints_from_plan(
+        res.positions, res.velocities, res.accelerations, T, 0.0025, mpc.dt
+    )
+    gw = torch.cat([goal.T, t(rng.normal(0, 1, (3, B))), t(np.zeros((2, B)))])
+    spheres = torch.cat(
+        [pos[:, None, :] + t(rng.normal(0, 1.5, (B, 3, 3))),
+         t(rng.uniform(0.3, 0.9, (B, 3, 1)))], dim=-1,
+    )
+    mask = torch.ones((B, 3), dtype=torch.bool, device=dev)
+    mask[::7, 1] = False
+    return (cuda_rollout.pack_state(rb, ctrl), sp, gw.contiguous(),
+            cuda_rollout.pack_obstacles(spheres, mask))
+
+
+def tick_block_phase(dev) -> float:
+    """Phase 8: kernel B2 against ``run_tick_block_plain`` on 2048 episodes.
+    Returns the largest |kernel - plain| over the gated rows."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_rollout
+    from dart_planner_tpu_torch.sim import ClosedLoopConfig
+
+    base = ClosedLoopConfig()
+    B = B_MC
+    worst = 0.0
+    variants = (
+        ("T=40", base.control, 40, 1),
+        ("T=25 substeps=2", base.control, 25, 2),
+        ("T=40 failsafe_trigger_count=10",
+         base.control._replace(failsafe_trigger_count=10), 40, 1),
+    )
+    for i, (label, ctrl_cfg, T, sub) in enumerate(variants):
+        S, (spp, spv, spa), gw, obs = random_tick_inputs(ctrl_cfg, B, T, 10 + i, dev)
+        args = (ctrl_cfg, base.physics, base.control_dt, T, sub, S, spp, spv, spa,
+                gw, obs)
+        before = cuda_rollout.LAUNCHES
+        ks, ka = cuda_rollout.run_tick_block(*args)
+        torch.cuda.synchronize()
+        check(cuda_rollout.LAUNCHES == before + 1,
+              f"tick block {label}: LAUNCHES rose by "
+              f"{cuda_rollout.LAUNCHES - before}, not 1")
+        ps, pa = cuda_rollout.run_tick_block_plain(*args)
+        check(bool(torch.isfinite(ks).all() and torch.isfinite(ka).all()),
+              f"tick block {label}: non-finite kernel output")
+        # the 0/1 rows (lt_sat, fcount) are exact compares at clip limits:
+        # count the episodes where they part, and hold the float rows of
+        # the others
+        parted = (ks[21:25] != ps[21:25]).any(0)
+        n_parted = int(parted.sum())
+        check(n_parted <= 0.001 * B,
+              f"tick block {label}: lt_sat/fcount differ in {n_parted} of {B} "
+              "episodes (> 0.1%)")
+        keep = ~parted
+        errs = []
+        for name, k, p in (("state", ks, ps), ("accumulator", ka, pa)):
+            d = (k - p).abs()[:, keep]
+            errs.append(float(d.max()))
+            check(bool((d <= 1e-4 + 1e-4 * p.abs()[:, keep]).all()),
+                  f"tick block {label}: {name} rows beyond atol 1e-4 + rtol 1e-4 "
+                  f"(max |diff| {errs[-1]:.3g})")
+        R = ks[9:18].T.reshape(B, 3, 3)
+        ortho = float(
+            (torch.einsum("bij,bkj->bik", R, R) - torch.eye(3, device=dev)).abs().max()
+        )
+        check(ortho <= 1e-5, f"tick block {label}: |R R^T - I| {ortho:.3g} > 1e-5")
+        latched = int((ps[24] > ctrl_cfg.failsafe_trigger_count).sum())
+        worst = max([worst] + errs)
+        print(f"[8 tick block {label}] B={B}: max |kernel - plain| state "
+              f"{errs[0]:.3g}, accumulators {errs[1]:.3g} (atol 1e-4 + rtol 1e-4); "
+              f"lt_sat/fcount parted in {n_parted} of {B} episodes; failsafe "
+              f"latched in {latched}; |R R^T - I| {ortho:.3g} (1e-5)", flush=True)
+    return worst
+
+
+def mc_config():
+    """The Monte-Carlo configuration of the JAX package's bench (wind,
+    sensor noise, in-flight sensing, unknown-space speed cap)."""
+    from dart_planner_tpu_torch.sim import ClosedLoopConfig
+
+    return ClosedLoopConfig(
+        wind_mean=1.0, wind_std=0.5, sensor_noise_std=0.02, sense_radius=3.0,
+        unknown_speed_cap=2.0,
+    )
+
+
+def summarize(res) -> dict:
+    return {
+        "success": float(res.success.float().mean()),
+        "crash": float(res.crashed.float().mean()),
+        "timeout": float((~res.success & ~res.crashed).float().mean()),
+        "rmse": float(res.tracking_rmse.mean()),
+        "clearance": float(res.min_obstacle_clearance.mean()),
+    }
+
+
+def closed_loop_phase(dev) -> dict:
+    """Phase 9: the closed-loop main path at full size, with the launch
+    counts set to 0 just before and read just after. The first replan's
+    problems are kept for phase 3e."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning import se3_mpc
+    from dart_planner_tpu_torch.sim import WorldConfig
+    from dart_planner_tpu_torch.sim.worlds import monte_carlo_with_worlds
+
+    cfg = mc_config()
+    first = []
+    solve = se3_mpc.solve
+
+    def recording_solve(config, prob, u_init=None, *a, **kw):
+        if not first:
+            first.append((config, prob, u_init))
+        return solve(config, prob, u_init, *a, **kw)
+
+    gen = torch.Generator().manual_seed(0)
+    se3_mpc.solve = recording_solve
+    try:
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res, (tobs, _), (pobs, pmask) = monte_carlo_with_worlds(
+            cfg, WorldConfig(), gen, B_MC, torch.tensor(MC_START, device=dev),
+            torch.tensor(MC_GOAL, device=dev), method="auto",
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}
+    finally:
+        se3_mpc.solve = solve
+    check(launches == {"B1": cfg.num_replans, "B2": cfg.num_replans},
+          f"closed loop: launches {launches}, not {cfg.num_replans} of each")
+    for name, x in zip(res._fields, res):
+        check(x.device.type == "cuda", f"closed loop: {name} is on {x.device}")
+        if x.dtype.is_floating_point:
+            check(bool(torch.isfinite(x).all()), f"closed loop: non-finite {name}")
+    q = summarize(res)
+    check(q["success"] >= 0.97, f"closed loop: success {q['success']:.4f} < 0.97")
+    check(q["crash"] <= 0.015, f"closed loop: crash {q['crash']:.4f} > 0.015")
+    check(q["rmse"] < 0.1, f"closed loop: tracking RMSE {q['rmse']:.4f} m >= 0.1")
+    r = MC_RECORD
+    print(f"[9 closed loop] monte_carlo_with_worlds B={B_MC}, 60 replans x 40 "
+          f"ticks, method='auto': launches {launches}; success {q['success']:.4f} "
+          f"(JAX record {r['success']}), crash {q['crash']:.4f} ({r['crash']}), "
+          f"timeout {q['timeout']:.4f}, tracking RMSE {q['rmse']:.4f} m "
+          f"({r['rmse']}), mean min clearance {q['clearance']:.4f} m "
+          f"({r['clearance']}); perceived spheres {int(pmask.sum())} of "
+          f"{pmask.numel()}; wall {wall:.2f} s with perception and the first "
+          "call's warm-up", flush=True)
+    return {"launches": launches, "quality": q, "first": first[0]}
+
+
+def b1_k11_phase(first) -> float:
+    """Phase 3e: one CG-2 round of kernel B1 against its plain loop on the
+    closed-loop fleet's first-replan problems: K = 8 perceived + 3 sensed
+    spheres, every hinge on, a per-scenario v_cap."""
+    import torch
+
+    from dart_planner_tpu_torch.common import frames
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc
+
+    config, prob, u0 = first
+    check(prob.obstacles.shape[-2] == 11 and prob.v_cap is not None,
+          f"first replan: K={prob.obstacles.shape[-2]}, v_cap "
+          f"{'set' if prob.v_cap is not None else 'missing'}; expected K=11 and a cap")
+    gvec = frames.gravity_vector(frames.WorldFrame.ENU, config.gravity,
+                                 device=prob.p0.device)
+    act = hinge_activity(config, prob, u0, gvec)
+    worst = 0.0
+    for stage, n_gn in (("GN", 1), ("full", 0)):
+        cfg_r = config._replace(max_iterations=1, cg_iterations=2,
+                                gn_warmup_iterations=n_gn)
+        kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
+        pr = cuda_mpc.solve_thrusts_plain(cfg_r, prob, u0)
+        own = costs.condensed_cost(kr[0], prob, config.weights, config.dt,
+                                   config.mass, gvec)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in kr),
+              f"K=11 {stage}: non-finite kernel output")
+        du, dp, dv = (float((kr[i] - pr[i]).abs().max()) for i in (0, 2, 3))
+        c_own = float(((kr[4] - own).abs() / own.abs()).max())
+        for name, e in (("thrust", du), ("position", dp), ("velocity", dv)):
+            check(e <= 2e-3, f"K=11 {stage}: {name} max |kernel - plain| {e:.3g} > 2e-3")
+        check(c_own <= 1e-5, f"K=11 {stage}: cost vs own thrusts rel {c_own:.3g} > 1e-5")
+        worst = max(worst, du)
+        print(f"[3e B1 K=11 {stage}] B={prob.p0.shape[0]} first-replan problems, "
+              f"CG-2, v_cap range {float(prob.v_cap.min()):.3f}-"
+              f"{float(prob.v_cap.max()):.3f} m/s, active scenarios {act}: max |du| "
+              f"{du:.3g} |dpos| {dp:.3g} |dvel| {dv:.3g} (atol 2e-3); cost rel vs own "
+              f"thrusts {c_own:.3g} (rtol 1e-5)", flush=True)
+    return worst
+
+
+def device_profile(fn) -> dict:
+    """One torch.profiler pass over ``fn()``: the host wall, the device's
+    busy time (kernels and copies on the one stream, summed), its idle
+    share, and the top device kernels and copies with their shares of the
+    busy time. Only device-side entries are summed: a host op's self device
+    time is that of the kernels it launched, which are entries of their
+    own, so adding the host ops would count them twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=dev_us, reverse=True)
+    busy_us = sum(dev_us(e) for e in ops)
+    top = [(e.key[:48], round(dev_us(e) / 1e3, 3), round(dev_us(e) / busy_us, 3))
+           for e in ops[:6] if dev_us(e) > 0]
+    return {"wall": wall, "busy": busy_us / 1e6, "idle": 1.0 - busy_us / 1e6 / wall,
+            "top": top}
+
+
+def closed_loop_times(dev, card: str) -> dict:
+    """Phase 10: kernel B2 against its plain version at B=2048, T=40 (CUDA
+    events), and the Monte-Carlo's episodes/s with the kernels and with the
+    plain path (host clock after a synchronize; perception excluded, as the
+    JAX package's bench excludes it), plus one profile of the kernel run."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_rollout
+    from dart_planner_tpu_torch.sim import WorldConfig, closed_loop, physics, worlds
+
+    base = mc_config()
+    S, (spp, spv, spa), gw, obs = random_tick_inputs(base.control, B_MC, 40, 20, dev)
+    args = (base.control, base.physics, base.control_dt, 40, 1, S, spp, spv, spa, gw, obs)
+    t_k = cuda_time_ms(lambda: cuda_rollout.run_tick_block(*args))
+    t_p = cuda_time_ms(lambda: cuda_rollout.run_tick_block_plain(*args), reps=5)
+
+    # the fleet, worlds and perception once, as set-up
+    wc = WorldConfig()
+    gen = torch.Generator().manual_seed(0)
+    start = torch.tensor(MC_START, device=dev)
+    goal = torch.tensor(MC_GOAL, device=dev)
+    gen, states, goals = closed_loop.sample_fleet(gen, B_MC, start, goal)
+    tobs, tmask = worlds.sample_worlds(wc, gen, B_MC, states.position, goals)
+    pobs, pmask, cov = worlds.perceive_worlds(
+        wc, tobs, tmask, states.position, goals,
+        max_obstacles=base.mpc.max_obstacles, corridor_samples=wc.corridor_samples,
+    )
+    draws = torch.Generator().manual_seed(1)
+    wind = physics.sample_wind(draws, (B_MC,), base.wind_mean, base.wind_std,
+                                        device=dev)
+    noise = base.sensor_noise_std * torch.randn(
+        (base.num_replans, B_MC, 6), generator=draws).to(dev)
+
+    def run_mc(method, n=B_MC):
+        return closed_loop.simulate_episode(
+            base, None, _take(states, n), goals[:n],
+            obstacles=pobs[:n], obstacle_mask=pmask[:n], method=method,
+            true_obstacles=tobs[:n], true_obstacle_mask=tmask[:n],
+            corridor_observed=cov[:n], wind=wind[:n], noise=noise[:, :n],
+        )
+
+    def host_seconds(method, n=B_MC):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_mc(method, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    host_seconds("auto")  # warm-up
+    kernel_runs = [host_seconds("auto") for _ in range(3)]
+    t_mc = statistics.median(t for t, _ in kernel_runs)
+    q = summarize(kernel_runs[-1][1])
+    t_torch, res_torch = host_seconds("torch")
+    n_torch = B_MC
+    if t_torch > 60.0:
+        n_torch = 256
+        t_torch, res_torch = host_seconds("torch", n_torch)
+    qt = summarize(res_torch)
+    prof = device_profile(lambda: run_mc("auto"))
+    print(f"[10 times] ({card}) tick block B={B_MC} T=40 median CUDA-event ms: "
+          f"kernel {t_k:.4f}, plain {t_p:.4f}", flush=True)
+    print(f"[10 times] ({card}) Monte-Carlo B={B_MC}, perception excluded, host "
+          f"clock: kernels {B_MC / t_mc:.1f} episodes/s (median of 3, "
+          f"{t_mc:.3f} s a run; success {q['success']:.4f}, crash {q['crash']:.4f}); "
+          f"plain path {n_torch / t_torch:.1f} episodes/s (one run of {n_torch} "
+          f"episodes{', as 2048 passed 60 s' if n_torch != B_MC else ''}, "
+          f"{t_torch:.3f} s; success {qt['success']:.4f}, crash {qt['crash']:.4f})",
+          flush=True)
+    print(f"[10 profile] ({card}) kernel Monte-Carlo run: host wall {prof['wall']:.3f} "
+          f"s, device busy {prof['busy']:.3f} s, device idle share "
+          f"{prof['idle']:.3f}; top device ops (ms, share of busy) {prof['top']}", flush=True)
+    return {"ms": t_k, "plain_ms": t_p}
+
+
+def _take(states, n: int):
+    return states.replace(**{
+        f: getattr(states, f)[:n]
+        for f in ("timestamp", "position", "velocity", "attitude", "angular_velocity")
+    })
+
+
+def solver_phases(dev, card: str) -> dict:
+    """Phases 3a-7: kernel B1 against its plain loop at the solve bench's
+    shapes, the two-phase solve (the first slice's main path) with the
+    launch count set to 0 just before and read just after, the planner
+    facade, the fast path, and B1's times."""
+    import numpy as np
+    import torch
 
     from dart_planner_tpu_torch import DroneState
     from dart_planner_tpu_torch.common import frames
-    from dart_planner_tpu_torch.ops import _build, costs, cuda_mpc
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc
     from dart_planner_tpu_torch.planning import PlannerFactory, se3_mpc
     from dart_planner_tpu_torch.runtime import rt_executor
     from dart_planner_tpu_torch.runtime.fast_path import (
         PlannerFastPath,
         measure_latency,
     )
-
-    dev = torch.device("cuda", 0)
-    # the plain path's reference arithmetic is exact fp32: no TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # -- 1. device ----------------------------------------------------------
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        )
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise SmokeFailure(f"nvidia-smi did not run: {e}") from e
-    check(smi.returncode == 0 and smi.stdout.strip() != "",
-          f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    cap = torch.cuda.get_device_capability(0)
-    print(f"[1 device] {kind} capability {cap[0]}.{cap[1]} "
-          f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          "TF32 off for matmul and cuDNN", flush=True)
-
-    # -- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_mpc._library()
-    built = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[2 build] {_build.library_path().name} in {built:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s); ptxas: {' | '.join(ptxas)}",
-          flush=True)
 
     # -- 3. kernel vs plain at the bench shapes ------------------------------
     base = se3_mpc.SE3MPCConfig()
@@ -343,6 +671,63 @@ def run() -> dict:
           f"B=1 kernel {t_k1:.4f} plain {t_p1:.4f}; two-phase solve() "
           f"B={B_BENCH} kernel {t_2k:.4f} plain {t_2p:.4f}", flush=True)
 
+    return {"launches": launches, "max_abs_err": max([err_u] + err_rounds),
+            "ms": t_k, "plain_ms": t_p}
+
+
+def run() -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False: no GPU to test")
+
+    from dart_planner_tpu_torch.ops import _build, cuda_mpc, cuda_rollout
+
+    dev = torch.device("cuda", 0)
+    # the plain paths' reference arithmetic is exact fp32: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. device ----------------------------------------------------------
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise SmokeFailure(f"nvidia-smi did not run: {e}") from e
+    check(smi.returncode == 0 and smi.stdout.strip() != "",
+          f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    print(f"[1 device] {kind} capability {cap[0]}.{cap[1]} "
+          f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          "TF32 off for matmul and cuDNN", flush=True)
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_mpc._library()
+    cuda_rollout._library()
+    built = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[2 build] {_build.library_path().name} in {built:.1f} s "
+          f"(nvcc {_build.build_seconds:.1f} s); ptxas: {' | '.join(ptxas)}",
+          flush=True)
+
+    # -- 8. kernel B2 vs plain ----------------------------------------------
+    err_b2 = tick_block_phase(dev)
+    # -- 9. main path of this slice: the closed-loop Monte-Carlo ------------
+    mc = closed_loop_phase(dev)
+    # -- 3e. kernel B1 at K=11 on the fleet's first replan ------------------
+    err_k11 = b1_k11_phase(mc["first"])
+    # -- 3-7. kernel B1 at the solve bench, the first slice's main path -----
+    b1 = solver_phases(dev, card)
+    # -- 10. times of this slice ----------------------------------------------
+    t_b2 = closed_loop_times(dev, card)
+
     return {
         "kernels": [
             {
@@ -350,11 +735,24 @@ def run() -> dict:
                 "route": "cuda",
                 "source": cuda_mpc.SOURCE,
                 "replaces": cuda_mpc.REPLACES,
-                "launches": launches,
-                "max_abs_err": max([err_u] + err_rounds),
-                "ms": t_k,
-                "plain_ms": t_p,
-            }
+                "launches": mc["launches"]["B1"],
+                "launches_by_path": {"closed_loop": mc["launches"]["B1"],
+                                     "solve": b1["launches"]},
+                "max_abs_err": max(b1["max_abs_err"], err_k11),
+                "ms": b1["ms"],
+                "plain_ms": b1["plain_ms"],
+            },
+            {
+                "name": "tick_block (B2, closed-loop control and physics ticks)",
+                "route": "cuda",
+                "source": cuda_rollout.SOURCE,
+                "replaces": cuda_rollout.REPLACES,
+                "launches": mc["launches"]["B2"],
+                "launches_by_path": {"closed_loop": mc["launches"]["B2"]},
+                "max_abs_err": err_b2,
+                "ms": t_b2["ms"],
+                "plain_ms": t_b2["plain_ms"],
+            },
         ]
     }
 

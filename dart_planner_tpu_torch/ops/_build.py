@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, which :mod:`ctypes` loads. The library goes under
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, which :mod:`ctypes` loads. The library goes under
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the last
 build. Nothing here runs at import: the first call of :func:`load` builds.
@@ -24,7 +25,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills, into the log
 )
 
@@ -69,17 +70,33 @@ def load() -> ctypes.CDLL:
         out = library_path()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{build_log[-4000:]}"
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+            try:
+                procs = [
+                    subprocess.Popen(
+                        [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                    )
+                    for src, obj in zip(_sources(), objs)
+                ]
+                logs = [p.communicate()[0] for p in procs]
+                build_log = "".join(logs)
+                if any(p.returncode != 0 for p in procs):
+                    raise RuntimeError(f"nvcc failed:\n{build_log[-4000:]}")
+                link = subprocess.run(
+                    [nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True,
                 )
-            os.replace(tmp, out)
+                build_log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    raise RuntimeError(f"nvcc link failed:\n{build_log[-4000:]}")
+                os.replace(tmp, out)
+            finally:
+                tmp.unlink(missing_ok=True)
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+            build_seconds = time.perf_counter() - t0
         _lib = ctypes.CDLL(str(out))
         return _lib
