@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline build/dense/mpc_solve.cu
 
 Builds the hand-written CUDA kernels from ``dart_planner_tpu_torch/csrc/``
 with nvcc (one nvcc per source, started together) and holds each against
@@ -23,7 +24,12 @@ obstacle worlds (``sim.worlds.monte_carlo_with_worlds``, 2048 episodes of 60
 replans, phase 9), and the two-phase ``planning.se3_mpc.solve`` with the
 planner facade and the fast path (phases 4-6). Phases 7 and 10 time the
 kernels against their plain versions with CUDA events, and the
-Monte-Carlo's episodes/s on the host clock.
+Monte-Carlo's episodes/s on the host clock. With ``--baseline SRC``,
+phase 7 also builds SRC, an earlier version of kernel B1 that applies
+its maps as dense N x N products out of shared memory (the same C
+interface, the constant block of :func:`dense_constants`), and times it
+turn by turn against the scan kernel (baseline, scan, scan, baseline) at
+each of phase 7's kernel shapes.
 
 Each phase prints one line. The line before the last is the per-kernel JSON
 record; the last line is ``{"ok": true, "device": {...}}``, printed only
@@ -33,7 +39,11 @@ no CUDA device is visible. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -46,6 +56,18 @@ MC_START = (0.0, 0.0, 3.0)
 MC_GOAL = (6.0, 3.0, 4.0)
 # the JAX package's records on this fleet (BENCH_r05.json; docs/quality.md)
 MC_RECORD = {"success": 0.9937, "crash": 0.0049, "rmse": 0.0382, "clearance": 1.066}
+
+# NVIDIA H100 SXM peaks (data sheet, at a 700 W power limit): HBM3 bytes/s
+# and fp32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# a precise sqrtf or division: one SFU op and its Newton refinement,
+# counted as 8 fp32 operations
+SQRT_DIV_OPS = 8
+# kernel B2's fp32 operations per episode and control tick, reckoned from
+# csrc/tick_block.cu (the controller, one substep of the plant, the metrics
+# against K spheres): ~600 at K=3
+B2_OPS_PER_TICK = 600
 
 
 class SmokeFailure(Exception):
@@ -117,6 +139,122 @@ def cuda_time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the fp32 operations over the fp32 peak, and which it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def b1_bound(config, prob) -> tuple[float, str]:
+    """Bound of one launch of kernel B1 on ``prob``, counted from the work
+    the function needs, per valid horizon step, from csrc/mpc_solve.cu: one
+    add per element for each prefix or suffix sum of a structured map (S_p
+    is two sums, S_v one), an FMA as 2 operations, a precise sqrt or
+    division as SQRT_DIV_OPS, the sphere terms only for live spheres (the
+    mask's count). Every CG step of the budget is counted: the kernel's
+    exit on negative curvature is not observed. Bytes: each input read
+    once, each output written once, the constant block read once."""
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    N = config.prediction_horizon
+    B = prob.p0.numel() // 3
+    K = float(prob.obstacle_mask.sum()) / B  # live spheres a scenario
+    q = SQRT_DIV_OPS
+    n_gn, n_full = cuda_mpc.stage_counts(config)
+    A = len(config.line_search_alphas)
+    rollout = 24  # 2 prefix sums and the combine, 3 axes, plus C_pos, C_vel
+    cost = 65 + K * (14 + q) + (9 + q) + (10 + q)  # quadratic, hinges, spheres
+    cg_step = 168  # 2 prefix + 2 suffix sums, blocks, pull-back, dots, updates
+
+    def round_ops(full: bool) -> float:
+        spheres = K * (48 + 4 * q if full else 42 + 3 * q)
+        tilt = 29 + 4 * q if full else 23 + 3 * q
+        tnorm = 35 + 5 * q if full else 26 + 4 * q
+        return (rollout + 46 + spheres + cost + 21 + 18 + tilt + tnorm + 18
+                + (35 + 3 * q) + 15 + config.cg_iterations * cg_step
+                + A * (36 + cost))
+
+    ops = B * N * (n_gn * round_ops(False) + n_full * round_ops(True) + rollout + cost)
+    Kp = prob.obstacles.shape[-2]
+    floats_in = B * (N * 3 + 6 + N * 3 + Kp * 5 + (prob.v_cap is not None))
+    floats_out = B * (3 * N * 3 + 2)
+    n_bytes = 4 * (floats_in + floats_out + cuda_mpc.constants_host(config).numel())
+    return bound_ms(n_bytes, ops)
+
+
+def b2_bound(B: int, T: int, substeps: int, *tensors) -> tuple[float, str]:
+    """Bound of one launch of kernel B2: the bytes of its inputs and
+    outputs, and B2_OPS_PER_TICK per episode, tick and substep."""
+    n_bytes = sum(4 * t.numel() for t in tensors)
+    return bound_ms(n_bytes, B * T * substeps * B2_OPS_PER_TICK)
+
+
+def dense_constants(config):
+    """The constant block of the dense-map version of kernel B1 (for a
+    ``--baseline`` build): H, S_p/m, S_v/m as M[j * LD + k] = M[k, j],
+    S_p/m, S_v/m as M[k * LD + i] = M[k, i], then t, S_p 1, S_v 1, diag H."""
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc, dynamics
+
+    N = config.prediction_horizon
+    LD = cuda_mpc.lane_stride(N)
+    f32 = torch.float32
+    S_p, S_v, t = dynamics.rollout_matrices(N, float(config.dt))
+    Sp = torch.as_tensor(S_p, dtype=f32) / config.mass
+    Sv = torch.as_tensor(S_v, dtype=f32) / config.mass
+    H64 = costs.quadratic_hessian(N, config.dt, config.mass, config.gravity, config.weights)
+    H = torch.as_tensor(H64, dtype=f32)
+
+    def rows(M):
+        out = torch.zeros(N, LD, dtype=f32)
+        out[:, :N] = M
+        return out.reshape(-1)
+
+    def vec(v):
+        out = torch.zeros(LD, dtype=f32)
+        out[:N] = torch.as_tensor(np.array(v), dtype=f32)
+        return out
+
+    return torch.cat([rows(H.T), rows(Sp.T), rows(Sv.T), rows(Sp), rows(Sv), vec(t),
+                      vec(S_p.sum(1)), vec(S_v.sum(1)), vec(np.diagonal(H64))])
+
+
+def load_baseline(source: pathlib.Path):
+    """Build ``source`` (the dense-map version of kernel B1, with the same C
+    interface) into its own library under build/ and bind its
+    ``mpc_solve_launch``."""
+    from dart_planner_tpu_torch.ops import _build, cuda_mpc
+
+    out = _build.BUILD_DIR.parent / "baseline" / "libmpc_dense.so"
+    _build.compile_library([source], out)
+    return cuda_mpc.bind(ctypes.CDLL(str(out)))
+
+
+@contextlib.contextmanager
+def using_baseline(lib):
+    """Route ``cuda_mpc.solve_thrusts_fused`` through the dense-map build of
+    kernel B1 and its constant block for the duration."""
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    saved = cuda_mpc._library, cuda_mpc._constants
+    cache = {}
+
+    def cached(config, device):
+        if (config, device) not in cache:
+            cache[config, device] = dense_constants(config).to(device)
+        return cache[config, device]
+
+    cuda_mpc._library = lambda: lib
+    cuda_mpc._constants = cached
+    try:
+        yield
+    finally:
+        cuda_mpc._library, cuda_mpc._constants = saved
 
 
 def random_tick_inputs(ctrl_cfg, B: int, T: int, seed: int, dev) -> tuple:
@@ -349,6 +487,47 @@ def b1_k11_phase(first) -> float:
     return worst
 
 
+def _device_us(event) -> float:
+    """An averaged profiler entry's own device time, in us."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def convex_tie_phase(dev) -> None:
+    """Phase 3f: the JAX package's small convex regime (16 scenarios, N=8,
+    CG-10, the hinges off; ROADMAP C.9), kernel B1 against its plain loop
+    after each of rounds 1-4: where the two part by more than 2e-3 N, and
+    their costs there. Reported; ``test_cuda_kernel_convex_parity`` in
+    tests/test_torch_cuda_mpc.py holds it."""
+    import numpy as np
+
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    cfg = se3_mpc.SE3MPCConfig(
+        prediction_horizon=8, cg_iterations=10, tail_iterations=0, ground_weight=0.0,
+        velocity_bound_weight=0.0, tilt_weight=0.0, thrust_norm_weight=0.0,
+    )
+    rng = np.random.default_rng(0)  # the test's draws: spheres (unused), then states
+    rng.normal(0, 4, (16, 3, 3)), rng.uniform(0.3, 1.2, (16, 3, 1))
+    p0 = rng.normal(0, 2, (16, 3)).astype(np.float32) + np.float32([0, 0, 5])
+    v0 = rng.normal(0, 1, (16, 3)).astype(np.float32)
+    goal = rng.normal(0, 3, (16, 3)).astype(np.float32) + np.float32([0, 0, 5])
+    prob = se3_mpc.make_problem(p0, v0, goal, config=cfg, device=dev)
+    u0 = se3_mpc.initialize_thrusts(cfg, prob)
+    rounds = []
+    for r in range(1, 5):
+        c = cfg._replace(max_iterations=r)
+        k = cuda_mpc.solve_thrusts_fused(c, prob, u0, False)
+        p = cuda_mpc.solve_thrusts_plain(c, prob, u0, False)
+        du = (k[0] - p[0]).abs().amax((-1, -2))
+        apart = [f"scenario {i}: {float(du[i]):.3g} N, cost kernel {float(k[4][i]):.8g} "
+                 f"plain {float(p[4][i]):.8g}" for i in (du > 2e-3).nonzero().flatten().tolist()]
+        rounds.append(f"round {r} max |du| {float(du.max()):.3g}"
+                      + (f" ({'; '.join(apart)})" if apart else ""))
+    print(f"[3f convex tie] N=8, CG-10, 16 scenarios: {', '.join(rounds)}", flush=True)
+
+
 def device_profile(fn) -> dict:
     """One torch.profiler pass over ``fn()``: the host wall, the device's
     busy time (kernels and copies on the one stream, summed), its idle
@@ -367,18 +546,34 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)),
-                 key=dev_us, reverse=True)
-    busy_us = sum(dev_us(e) for e in ops)
-    top = [(e.key[:48], round(dev_us(e) / 1e3, 3), round(dev_us(e) / busy_us, 3))
-           for e in ops[:6] if dev_us(e) > 0]
+                 key=_device_us, reverse=True)
+    busy_us = sum(_device_us(e) for e in ops)
+    top = [(e.key[:48], round(_device_us(e) / 1e3, 3), round(_device_us(e) / busy_us, 3))
+           for e in ops[:6] if _device_us(e) > 0]
     return {"wall": wall, "busy": busy_us / 1e6, "idle": 1.0 - busy_us / 1e6 / wall,
             "top": top}
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 5) -> float:
+    """Device time a call of ``fn()`` spends in the kernels whose name holds
+    ``kernel`` (the kernel alone, without the wrapper's host work and torch
+    ops), by torch.profiler over ``reps`` calls after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    check(us > 0, f"profile: no device time in a kernel named {kernel}")
+    return us / reps / 1e3
 
 
 def closed_loop_times(dev, card: str) -> dict:
@@ -395,7 +590,9 @@ def closed_loop_times(dev, card: str) -> dict:
     S, (spp, spv, spa), gw, obs = random_tick_inputs(base.control, B_MC, 40, 20, dev)
     args = (base.control, base.physics, base.control_dt, 40, 1, S, spp, spv, spa, gw, obs)
     t_k = cuda_time_ms(lambda: cuda_rollout.run_tick_block(*args))
+    d_k = kernel_device_ms(lambda: cuda_rollout.run_tick_block(*args), "tick_block_kernel")
     t_p = cuda_time_ms(lambda: cuda_rollout.run_tick_block_plain(*args), reps=5)
+    bnd, bound_by = b2_bound(B_MC, 40, 1, *args[5:], *cuda_rollout.run_tick_block(*args))
 
     # the fleet, worlds and perception once, as set-up
     wc = WorldConfig()
@@ -441,7 +638,9 @@ def closed_loop_times(dev, card: str) -> dict:
     qt = summarize(res_torch)
     prof = device_profile(lambda: run_mc("auto"))
     print(f"[10 times] ({card}) tick block B={B_MC} T=40 median CUDA-event ms: "
-          f"kernel {t_k:.4f}, plain {t_p:.4f}", flush=True)
+          f"kernel {t_k:.4f} (the kernel alone {d_k:.4f} by torch.profiler), plain "
+          f"{t_p:.4f}, bound {bnd:.3g} ({bound_by}; share of the kernel alone "
+          f"{bnd / d_k:.3g})", flush=True)
     print(f"[10 times] ({card}) Monte-Carlo B={B_MC}, perception excluded, host "
           f"clock: kernels {B_MC / t_mc:.1f} episodes/s (median of 3, "
           f"{t_mc:.3f} s a run; success {q['success']:.4f}, crash {q['crash']:.4f}); "
@@ -452,7 +651,8 @@ def closed_loop_times(dev, card: str) -> dict:
     print(f"[10 profile] ({card}) kernel Monte-Carlo run: host wall {prof['wall']:.3f} "
           f"s, device busy {prof['busy']:.3f} s, device idle share "
           f"{prof['idle']:.3f}; top device ops (ms, share of busy) {prof['top']}", flush=True)
-    return {"ms": t_k, "plain_ms": t_p}
+    return {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
+            "bound_by": bound_by}
 
 
 def _take(states, n: int):
@@ -462,11 +662,15 @@ def _take(states, n: int):
     })
 
 
-def solver_phases(dev, card: str) -> dict:
+def solver_phases(dev, card: str, first, baseline=None) -> dict:
     """Phases 3a-7: kernel B1 against its plain loop at the solve bench's
     shapes, the two-phase solve (the first slice's main path) with the
     launch count set to 0 just before and read just after, the planner
-    facade, the fast path, and B1's times."""
+    facade, the fast path, and B1's times at the main paths' shapes
+    (``first``: the closed loop's first-replan solve; ``baseline``: the
+    library of the dense-map build of B1 to time beside it, or None)."""
+    import math
+
     import numpy as np
     import torch
 
@@ -596,7 +800,7 @@ def solver_phases(dev, card: str) -> dict:
     inside = bool(((res.thrusts >= lb - 1e-5) & (res.thrusts <= ub + 1e-5)).all())
     check(inside, "main path: thrusts outside thrust_bounds")
     conv = float(res.converged.float().mean())
-    check(conv >= 0.90, f"main path: converged fraction {conv:.4f} < 0.90")
+    check(conv >= 0.957, f"main path: converged fraction {conv:.4f} < 0.957")
     traj = se3_mpc.extract_trajectory(base, res, 0.0)
     check(bool(torch.isfinite(traj.attitudes).all()
                and torch.isfinite(traj.body_rates).all()),
@@ -606,7 +810,9 @@ def solver_phases(dev, card: str) -> dict:
           flush=True)
     # solution quality against a ground truth: the lower cost of a
     # 60-round CG-25 solve by the kernel and by the plain loop (the
-    # measure of docs/quality.md; reported, not gated)
+    # measure of docs/quality.md). The shipping default's max excess is
+    # reported; with the perturbed restart (restart_iterations=20) it is
+    # held below 0.1.
     cfg_gt = cfg_p1._replace(max_iterations=60, cg_iterations=25)
     u_qp = se3_mpc.initialize_thrusts(base, prob)
     gt = torch.minimum(
@@ -615,18 +821,27 @@ def solver_phases(dev, card: str) -> dict:
     )
     excess = ((res.cost - gt) / gt.abs()).float()
     conv_excess = excess[res.converged]
+    res_r = se3_mpc.solve(base._replace(restart_iterations=20), prob, method="auto")
+    excess_r = float(((res_r.cost - gt) / gt.abs()).max())
+    conv_r = float(res_r.converged.float().mean())
+    check(excess_r < 0.1, f"restart_iterations=20: max excess {excess_r:.3g} >= 0.1")
     print(f"[4 quality] excess over a 60-round CG-25 ground truth: p95 "
           f"{float(excess.quantile(0.95)):.3g} max {float(excess.max()):.3g}; "
-          f"converged cohort p95 {float(conv_excess.quantile(0.95)):.3g}",
-          flush=True)
+          f"converged cohort p95 {float(conv_excess.quantile(0.95)):.3g}; "
+          f"restart_iterations=20: converged {conv_r:.4f}, max excess {excess_r:.3g} "
+          "(< 0.1)", flush=True)
 
     # -- 5. planner facade ---------------------------------------------------
-    check(isinstance(PlannerFactory.create("se3_mpc"), se3_mpc.SE3MPCPlanner),
+    # the factory's planner with no device given: on the card by default
+    planner = PlannerFactory.create("se3_mpc")
+    check(isinstance(planner, se3_mpc.SE3MPCPlanner),
           "PlannerFactory('se3_mpc') is not the port's planner")
-    planner = se3_mpc.SE3MPCPlanner(device="cuda")
+    check(planner.device.type == "cuda",
+          f"PlannerFactory('se3_mpc') plans on {planner.device}, not the card")
     planner.add_obstacle(center=(2.5, 0.0, 2.0), radius=0.5)
     start, goal = (0.0, 0.0, 2.0), (5.0, 0.0, 3.0)
-    state = DroneState.create(timestamp=0.0, position=start, device=dev)
+    state = DroneState.create(timestamp=0.0, position=start)
+    check(state.position.device.type == "cuda", "DroneState.create is not on the card")
     for i in range(5):
         before = cuda_mpc.LAUNCHES
         traj = planner.plan_trajectory(state, goal)
@@ -636,11 +851,13 @@ def solver_phases(dev, card: str) -> dict:
     d_end = float(np.linalg.norm(final - np.asarray(goal)))
     d_start = float(np.linalg.norm(np.asarray(start) - np.asarray(goal)))
     check(d_end < d_start, f"planner: end {d_end:.3f} m from goal, start {d_start:.3f}")
-    print(f"[5 planner] 5 warm-started replans on cuda; last plan ends "
+    print(f"[5 planner] PlannerFactory.create('se3_mpc') on {planner.device}: "
+          f"5 warm-started replans, each launching B1; last plan ends "
           f"{d_end:.3f} m from the goal (start {d_start:.3f} m)", flush=True)
 
     # -- 6. fast path ----------------------------------------------------------
-    fp = PlannerFastPath(device="cuda")
+    fp = PlannerFastPath()
+    check(fp.device.type == "cuda", f"PlannerFastPath() is on {fp.device}, not the card")
     loop = rt_executor.create_control_loop(frequency_hz=200.0)
     loop.set_gains(
         kp_pos=[2.0, 2.0, 4.0], ki_pos=[0.0] * 3, kd_pos=[1.0] * 3,
@@ -657,25 +874,62 @@ def solver_phases(dev, card: str) -> dict:
           f"{lat['planner_to_actuator_p95_ms']:.3f} ms (host clock; {card})",
           flush=True)
 
-    # -- 7. times: kernel vs plain, phase 1 ---------------------------------
+    # -- 7. times: kernel vs plain (and vs the dense-map kernel, turn by turn)
     one = bench_problem(se3_mpc, base, 1, 1, dev)
     u1 = se3_mpc.initialize_thrusts(cfg_p1, one)
-    t_k = cuda_time_ms(lambda: cuda_mpc.solve_thrusts_fused(cfg_p1, prob, u0))
-    t_p = cuda_time_ms(lambda: cuda_mpc.solve_thrusts_plain(cfg_p1, prob, u0), reps=5)
-    t_k1 = cuda_time_ms(lambda: cuda_mpc.solve_thrusts_fused(cfg_p1, one, u1))
-    t_p1 = cuda_time_ms(lambda: cuda_mpc.solve_thrusts_plain(cfg_p1, one, u1), reps=5)
-    t_2k = cuda_time_ms(lambda: se3_mpc.solve(base, prob, u0, method="cuda"))
-    t_2p = cuda_time_ms(lambda: se3_mpc.solve(base, prob, u0, method="torch"), reps=3)
-    print(f"[7 times] median CUDA-event ms ({card}): phase-1 solve "
-          f"B={B_BENCH} kernel {t_k:.4f} plain {t_p:.4f}; "
-          f"B=1 kernel {t_k1:.4f} plain {t_p1:.4f}; two-phase solve() "
-          f"B={B_BENCH} kernel {t_2k:.4f} plain {t_2p:.4f}", flush=True)
+    cfg_k, prob_k, u_k = first
+    cfg_t = base._replace(  # the tail pass of solve(), as _tail_refine sets it
+        max_iterations=base.tail_iterations, cg_iterations=base.tail_cg_iterations,
+        gn_warmup_iterations=0, line_search_alphas=base.tail_line_search_alphas,
+    )
+    n_tail = math.ceil(base.tail_capacity * B_BENCH)
+    bound_p1 = b1_bound(cfg_p1, prob)
+    bound_tail = b1_bound(cfg_t, prob)[0] * n_tail / B_BENCH
+    fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
+    shapes = (
+        ("phase1_4096", f"phase-1 solve B={B_BENCH}", lambda: fused(cfg_p1, prob, u0),
+         lambda: plain(cfg_p1, prob, u0), 5, bound_p1),
+        ("phase1_1", "phase-1 solve B=1", lambda: fused(cfg_p1, one, u1),
+         lambda: plain(cfg_p1, one, u1), 5, b1_bound(cfg_p1, one)),
+        ("k11_2048", f"K=11 B={prob_k.p0.shape[0]} (closed loop's first replan)",
+         lambda: fused(cfg_k, prob_k, u_k), lambda: plain(cfg_k, prob_k, u_k), 3,
+         b1_bound(cfg_k, prob_k)),
+        ("solve_4096", f"two-phase solve() B={B_BENCH}",
+         lambda: se3_mpc.solve(base, prob, u0, method="cuda"),
+         lambda: se3_mpc.solve(base, prob, u0, method="torch"), 3,
+         (bound_p1[0] + bound_tail, bound_p1[1])),
+    )
+    times = {}
+    for key, label, run_k, run_p, reps_p, (bnd, bound_by) in shapes:
+        turns = ""
+        if baseline is None:
+            t_k = cuda_time_ms(run_k)
+        else:
+            with using_baseline(baseline):
+                old_a = cuda_time_ms(run_k)
+            new_a, new_b = cuda_time_ms(run_k), cuda_time_ms(run_k)
+            with using_baseline(baseline):
+                old_b = cuda_time_ms(run_k)
+                d_old = kernel_device_ms(run_k, "mpc_solve_kernel")
+            t_k = (new_a + new_b) / 2
+            turns = (f"; dense / scan / scan / dense: {old_a:.4f} / {new_a:.4f} / "
+                     f"{new_b:.4f} / {old_b:.4f} ms, speed-up "
+                     f"{(old_a + old_b) / (new_a + new_b):.2f}x, dense alone "
+                     f"{d_old:.4f} ms")
+        d_k = kernel_device_ms(run_k, "mpc_solve_kernel")
+        t_p = cuda_time_ms(run_p, reps=reps_p)
+        times[key] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
+                      "bound_by": bound_by}
+        print(f"[7 times] ({card}) {label}, median CUDA-event ms: kernel {t_k:.4f} "
+              f"(the kernel alone {d_k:.4f} by torch.profiler), plain {t_p:.4f}, bound "
+              f"{bnd:.3g} ({bound_by}; share of the kernel alone {bnd / d_k:.3g}){turns}",
+              flush=True)
 
     return {"launches": launches, "max_abs_err": max([err_u] + err_rounds),
-            "ms": t_k, "plain_ms": t_p}
+            **times["phase1_4096"], "times": times}
 
 
-def run() -> dict:
+def run(baseline_source=None) -> dict:
     import torch
 
     if not torch.cuda.is_available():
@@ -712,10 +966,16 @@ def run() -> dict:
     cuda_rollout._library()
     built = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"[2 build] {_build.library_path().name} in {built:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s); ptxas: {' | '.join(ptxas)}",
           flush=True)
+    baseline = None
+    if baseline_source is not None:
+        t0 = time.perf_counter()
+        baseline = load_baseline(pathlib.Path(baseline_source))
+        print(f"[2 build] dense {baseline_source} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     # -- 8. kernel B2 vs plain ----------------------------------------------
     err_b2 = tick_block_phase(dev)
@@ -723,11 +983,14 @@ def run() -> dict:
     mc = closed_loop_phase(dev)
     # -- 3e. kernel B1 at K=11 on the fleet's first replan ------------------
     err_k11 = b1_k11_phase(mc["first"])
+    # -- 3f. kernel B1 in the small convex regime, round by round ----------
+    convex_tie_phase(dev)
     # -- 3-7. kernel B1 at the solve bench, the first slice's main path -----
-    b1 = solver_phases(dev, card)
+    b1 = solver_phases(dev, card, mc["first"], baseline)
     # -- 10. times of this slice ----------------------------------------------
     t_b2 = closed_loop_times(dev, card)
 
+    replans = mc_config().num_replans
     return {
         "kernels": [
             {
@@ -738,9 +1001,16 @@ def run() -> dict:
                 "launches": mc["launches"]["B1"],
                 "launches_by_path": {"closed_loop": mc["launches"]["B1"],
                                      "solve": b1["launches"]},
+                "launches_per_solve": {"two_phase_solve": b1["launches"],
+                                       "closed_loop_replan": mc["launches"]["B1"] / replans},
                 "max_abs_err": max(b1["max_abs_err"], err_k11),
                 "ms": b1["ms"],
+                "device_ms": b1["device_ms"],
                 "plain_ms": b1["plain_ms"],
+                "bound_ms": b1["bound_ms"],
+                "bound_by": b1["bound_by"],
+                "library_ms": None,
+                "times": b1["times"],
             },
             {
                 "name": "tick_block (B2, closed-loop control and physics ticks)",
@@ -749,17 +1019,26 @@ def run() -> dict:
                 "replaces": cuda_rollout.REPLACES,
                 "launches": mc["launches"]["B2"],
                 "launches_by_path": {"closed_loop": mc["launches"]["B2"]},
+                "launches_per_solve": {"closed_loop_replan": mc["launches"]["B2"] / replans},
                 "max_abs_err": err_b2,
                 "ms": t_b2["ms"],
+                "device_ms": t_b2["device_ms"],
                 "plain_ms": t_b2["plain_ms"],
+                "bound_ms": t_b2["bound_ms"],
+                "bound_by": t_b2["bound_by"],
+                "library_ms": None,
             },
         ]
     }
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="the dense-map version of csrc/mpc_solve.cu, "
+                        "to time turn by turn beside the scan kernel (phase 7)")
+    args = parser.parse_args()
     try:
-        record = run()
+        record = run(args.baseline)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -11,6 +11,8 @@ import enum
 
 import torch
 
+from dart_planner_tpu_torch.common.device import resolve_device
+
 GRAVITY_MAGNITUDE = 9.81  # m/s^2
 
 
@@ -23,9 +25,10 @@ def gravity_vector(
     frame: WorldFrame = WorldFrame.ENU,
     magnitude: float = GRAVITY_MAGNITUDE,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
     """Gravity acceleration in the given world frame: ENU (0, 0, -g),
-    NED (0, 0, +g)."""
+    NED (0, 0, +g), on ``device`` (default: the card)."""
     sign = -1.0 if frame == WorldFrame.ENU else 1.0
-    return torch.tensor([0.0, 0.0, sign * magnitude], dtype=dtype, device=device)
+    return torch.tensor([0.0, 0.0, sign * magnitude], dtype=dtype,
+                        device=resolve_device(device))

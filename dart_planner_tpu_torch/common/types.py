@@ -3,7 +3,8 @@
 Counterpart of :mod:`dart_planner_tpu.common.types`: plain dataclasses of
 SI-unit tensors. Every field may carry leading batch dimensions, so a
 ``DroneState`` is one vehicle or a fleet with no code change. Constructors
-that make tensors take an explicit ``dtype`` and ``device``.
+that make tensors take a ``dtype`` and a ``device`` (default: the card,
+:func:`~dart_planner_tpu_torch.common.device.default_device`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from dart_planner_tpu_torch.common.device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -42,8 +45,10 @@ class DroneState(_Replace):
 
     @classmethod
     def zeros(
-        cls, batch_shape: tuple = (), dtype=torch.float32, device="cpu"
+        cls, batch_shape: tuple = (), dtype=torch.float32, device=None
     ) -> "DroneState":
+        device = resolve_device(device)
+
         def v3():
             return torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
 
@@ -64,8 +69,10 @@ class DroneState(_Replace):
         attitude=(0.0, 0.0, 0.0),
         angular_velocity=(0.0, 0.0, 0.0),
         dtype=torch.float32,
-        device="cpu",
+        device=None,
     ) -> "DroneState":
+        device = resolve_device(device)
+
         def t(x):
             return torch.as_tensor(x, dtype=dtype, device=device)
 
@@ -91,8 +98,9 @@ class ControlCommand(_Replace):
 
     @classmethod
     def zeros(
-        cls, batch_shape: tuple = (), dtype=torch.float32, device="cpu"
+        cls, batch_shape: tuple = (), dtype=torch.float32, device=None
     ) -> "ControlCommand":
+        device = resolve_device(device)
         return cls(
             thrust=torch.zeros(batch_shape, dtype=dtype, device=device),
             torque=torch.zeros(batch_shape + (3,), dtype=dtype, device=device),

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from dart_planner_tpu_torch.common import frames
+from dart_planner_tpu_torch.common.device import resolve_device
 from dart_planner_tpu_torch.common.types import (
     BodyRateCommand,
     ControlCommand,
@@ -87,8 +88,9 @@ class ControllerState(_Replace):
 
     @classmethod
     def zeros(cls, config: GeometricConfig, batch_shape: tuple = (),
-              dtype=torch.float32, device="cpu") -> "ControllerState":
+              dtype=torch.float32, device=None) -> "ControllerState":
         batch_shape = tuple(batch_shape)
+        device = resolve_device(device)
 
         def full(shape, value, dt):
             return torch.full(shape, value, dtype=dt, device=device)
@@ -116,7 +118,8 @@ class ControlSetpoint(NamedTuple):
     yaw_rate: Tensor
 
     @classmethod
-    def hover_at(cls, position, dtype=torch.float32, device="cpu") -> "ControlSetpoint":
+    def hover_at(cls, position, dtype=torch.float32, device=None) -> "ControlSetpoint":
+        device = resolve_device(device)
         p = torch.as_tensor(position, dtype=dtype, device=device)
         z3 = torch.zeros_like(p)
         z = torch.zeros(p.shape[:-1], dtype=dtype, device=device)
@@ -336,9 +339,9 @@ class GeometricController:
     device). Halves the gains on the first failsafe activation, which is
     stateful and so lives here rather than in the pure function."""
 
-    def __init__(self, config: GeometricConfig | None = None, device="cpu"):
+    def __init__(self, config: GeometricConfig | None = None, device=None):
         self.config = config or GeometricConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = ControllerState.zeros(self.config, device=self.device)
         self._was_failsafe = False
         self.position_errors: list[float] = []

@@ -10,45 +10,84 @@
 //     sphere, ground, velocity envelope with an optional per-scenario cap,
 //     tilt cone, thrust norm), pulled back to thrust space;
 //   - an active-set mask on the thrust box;
-//   - Jacobi-preconditioned CG with Steihaug truncation, the penalty blocks
-//     applied matrix-free (Gauss-Newton for n_gn rounds, then full
+//   - Jacobi-preconditioned CG with Steihaug truncation, the Hessian applied
+//     matrix-free (Gauss-Newton hinge blocks for n_gn rounds, then full
 //     curvature with a clamped, floored Jacobi diagonal);
 //   - a projected line search over the given alphas that keeps the current
 //     iterate unless a candidate is strictly better (earliest alpha on
 //     ties);
 //   - the running minimum of the relative improvement (the ftol input),
 //     restarted at +inf when the full-curvature stage begins;
-// then a final exact rollout and cost pass. The CG matvec and the
-// line-search rollouts run in exact fp32 (the TPU kernel ran them in bf16).
+// then a final exact rollout and cost pass. Everything runs in exact fp32
+// (the TPU kernel ran the CG matvec and the line-search deltas in bf16).
 //
 // Layout: one warp per scenario, lane k = horizon step k (a lane holds steps
-// k, k+32 when N > 32). Every per-step vector (u, pos, vel, gradient, the CG
-// vectors d/r/z/p, the 3x3 Gauss-Newton block, the thrust-hinge terms) lives
-// in registers; lanes with k >= N hold exact zeros and free = 0. The
-// constant N x N maps (H, S_p/m, S_v/m, in a "direct" and a "transposed"
-// layout, so that lanes read consecutive shared-memory words) are staged in
-// shared memory once per block and shared by its warps. A matvec stages its
-// 3N-vector in per-warp shared memory, then each lane takes its row's dot
-// products; per-scenario sums use a __shfl_xor_sync butterfly, which leaves
-// a bit-identical value on every lane, so all branch decisions are
-// warp-uniform.
+// k, k+32 when N > 32, in slots 0 and 1). Every per-step vector lives in
+// registers; lanes with k >= N hold exact zeros and free = 0. Per-scenario
+// sums use a __shfl_xor_sync butterfly, which leaves a bit-identical value
+// on every lane, so every branch decision is warp-uniform.
 //
-// What bounds it (reckoned from the code, N=20, K=8, default budget): a CG
-// matvec is ~6k FMA per scenario (H, S_p, S_v direct plus two pullbacks,
-// 3 axes x 20 x 20 each), x 10 CG steps x 12 rounds, plus the line-search
-// rollouts and the K-sphere cost passes: ~1.1M FMA per scenario for phase 1
-// and ~0.35M more per scenario for the 25% tail at CG-25, so ~12 GFLOP per
-// 4096-scenario two-phase solve over a working set of ~2 MB. That is fp32
-// issue, shuffle and shared-memory bound, not HBM bound; every FMA of a
-// matvec pairs with one shared-memory load. 12 of the 32 lanes idle at
-// N=20. No tensor cores are used.
+// The constant maps are structured (ops/dynamics.py): S_v[k,j] = dt and
+// S_p[k,j] = dt^2 (k - j - 1/2) for j < k. So every map is applied as warp
+// scans over the lanes (a shift and 5 __shfl_up_sync / __shfl_down_sync
+// levels), and no N x N map is read anywhere. With E the exclusive prefix
+// sum and F the exclusive suffix sum,
+//   S_v x = dt E(x),   S_p x = dt^2 (E(x)/2 + E(E(x))),
+//   S_p^T a + S_v^T b = dt^2 (R/2 + F(R)) + dt F(b),  R = F(a),
+// so a map pair is two chained scans per axis, a chain of 12 shuffle levels
+// where the dense maps took 20 dependent FMAs each. Every weight in these
+// sums is positive, so no step subtracts large partial sums. The rollout
+// sums accelerations a = u/m + g, as the plain loop does (pos = p0 + t v0 +
+// S_p a), so hover thrust and gravity cancel before they are summed; the CG
+// matvec and the gradient pull-back use S/m. The quadratic Hessian
+// H = 2/m^2 [w_p S_p^T W S_p + w_v S_v^T S_v] + 2(w_a/m^2 + w_T) I never
+// exists as a matrix: one CG matvec is
+//   (S_p/m)^T [(2 wp_k I + h_k) yp_k] + (S_v/m)^T [(2 w_v + hv_k) yv_k]
+//   + 2 (w_a/m^2 + w_T) dv + the per-step tilt and thrust-norm blocks,
+// yp = (S_p/m) dv, yv = (S_v/m) dv: two forward and two backward scans per
+// axis in place of five dense maps. The Jacobi diagonal's
+// sum_k (S_p/m)[k,j]^2 h_k uses
+//   sum_{k>j} (k-j-1/2)^2 h_k = F(h/4 + 2 (R1 + F(R1)))_j,  R1 = F(h),
+// three suffix scans once a round, again with positive weights only. Lanes
+// k >= N hold zeros, so suffix sums are unaffected; prefix sums run on past
+// N and are masked. Each warp keeps its scenario's live spheres, compacted
+// in order when it loads them (a masked sphere adds exactly 0 to every sum),
+// and the sphere loops are unrolled by 4 so that their square roots and
+// divisions overlap. The only constants left are two step vectors (t and
+// diag H).
+//
+// What bounds it (N=20, K=8 with 4 live spheres, the default budget of 12
+// rounds at CG-10 and 6 alphas). The work the function needs, counted in
+// chip_smoke.py::b1_bound (the scans, the sphere passes, precise square
+// roots and divisions), is ~56 us of fp32 issue at B=4096, and its traffic
+// ~2 MB; so no peak binds. Each warp's dependent chain does: a CG step is
+// four scans of 6 dependent shuffle levels and two dependent butterflies
+// of 5 (~34 levels, ~90 shuffles), a round ~500 levels with the rollouts,
+// pull-backs, Jacobi scans and the 6 candidate rollouts and cost passes,
+// ~6k for the solve. On an H100 (700 W) the kernel alone takes ~0.22 ms
+// for one scenario (B=1) and ~0.57 ms for B=4096 (chip_smoke.py phase 7):
+// B=4096 runs as two waves of such chains, ~0.29 ms each, so the 16 warps
+// of an SM slow each other's chain by only about a third.
+//
+// Occupancy: blocks of kWarps = 4 warps. __launch_bounds__ asks for 4
+// resident blocks (<= 128 registers) at one step a lane,
+// so B=4096 is 1024 blocks over 528 slots of 16 warps an SM: two waves, the
+// second 94% full. B=2048 at K=11 (the Monte-Carlo) is under one wave;
+// there the shorter dependent chain is what counts.
+//
+// What it does not use, and why: no tensor cores (once the maps are scans no
+// product is left large enough for an mma tile, and a TF32 product would
+// break the exact-fp32 rollout); no TMA or cp.async pipeline (each scenario
+// reads ~1.4 KB once); no shared memory for maps (there are none), only
+// each warp's obstacle spheres. Packing two scenarios per warp would fill
+// the lanes only for N <= 16, not at the default N = 20.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // scenarios per block
+constexpr int kWarps = 4;  // scenarios per block
 constexpr int kMaxAlphas = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -64,9 +103,13 @@ struct MpcParams {
   float w_p, w_pN, w_v, w_a, w_T;
   float w_obs, w_g, z_min, w_vb, v_max, w_tilt, tan_max, w_tn, u_max;
   float lb[3], ub[3];
+  float dt;
 };
 
 namespace {
+
+template <int S>
+using Vec = float[S][3];
 
 __device__ __forceinline__ float wsum(float v) {
 #pragma unroll
@@ -75,7 +118,7 @@ __device__ __forceinline__ float wsum(float v) {
 }
 
 template <int S>
-__device__ __forceinline__ float vsum(const float (&x)[S][3]) {
+__device__ __forceinline__ float vsum(const Vec<S>& x) {
   float acc = 0.f;
 #pragma unroll
   for (int s = 0; s < S; ++s) acc += x[s][0] + x[s][1] + x[s][2];
@@ -83,7 +126,7 @@ __device__ __forceinline__ float vsum(const float (&x)[S][3]) {
 }
 
 template <int S>
-__device__ __forceinline__ float vdot(const float (&x)[S][3], const float (&y)[S][3]) {
+__device__ __forceinline__ float vdot(const Vec<S>& x, const Vec<S>& y) {
   float acc = 0.f;
 #pragma unroll
   for (int s = 0; s < S; ++s)
@@ -92,81 +135,190 @@ __device__ __forceinline__ float vdot(const float (&x)[S][3], const float (&y)[S
   return wsum(acc);
 }
 
-// Writes a per-step vector to the warp's staging buffer (3 rows of LD).
-// The leading __syncwarp lets every lane finish reading the old contents.
 template <int S>
-__device__ __forceinline__ void stage(float* buf, const float (&x)[S][3], int lane) {
-  constexpr int LD = 32 * S;
-  __syncwarp();
+__device__ __forceinline__ void copy(const Vec<S>& x, Vec<S>& y) {
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
-    for (int a = 0; a < 3; ++a) buf[a * LD + lane + 32 * s] = x[s][a];
-  __syncwarp();
+    for (int a = 0; a < 3; ++a) y[s][a] = x[s][a];
 }
 
-// y[k] += sum_j M[j * LD + k] * buf[j] for each axis (SQ: M squared).
-// With M in the "direct" layout this is (M @ x); in the "transposed"
-// layout it is (M^T @ x). Columns k >= N of M are zero.
-template <int S, bool SQ = false>
-__device__ __forceinline__ void apply_map(const float* __restrict__ M, const float* buf,
-                                          int N, int lane, float (&y)[S][3]) {
-  constexpr int LD = 32 * S;
-  for (int j = 0; j < N; ++j) {
-    const float x0 = buf[j], x1 = buf[LD + j], x2 = buf[2 * LD + j];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      float m = M[j * LD + lane + 32 * s];
-      if (SQ) m = m * m;
-      y[s][0] = fmaf(m, x0, y[s][0]);
-      y[s][1] = fmaf(m, x1, y[s][1]);
-      y[s][2] = fmaf(m, x2, y[s][2]);
-    }
-  }
-}
-
+// x_k <- sum_{j<k} x_j over the horizon (k = lane + 32 s), per axis: a
+// shift by one step, then a Kogge-Stone scan of 5 __shfl_up_sync levels;
+// with two steps a lane, slot 1 adds slot 0's total.
 template <int S>
-__device__ __forceinline__ void zero(float (&x)[S][3]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) x[s][0] = x[s][1] = x[s][2] = 0.f;
-}
-
-struct Shared {
-  const float *Hd, *Spd, *Svd, *Spt, *Svt, *tv, *spg, *svg, *dq;
-  float* bufA;
-  float* bufB;
-  const float* obs;  // [K][5]: cx, cy, cz, r_safe, mask
-};
-
-// pos = C_pos + (S_p/m) u, vel = C_vel + (S_v/m) u
-template <int S>
-__device__ __forceinline__ void rollout(const Shared& sh, int N, int lane,
-                                        const float (&cpos)[S][3], const float (&cvel)[S][3],
-                                        const float (&u)[S][3], float (&pos)[S][3],
-                                        float (&vel)[S][3]) {
+__device__ __forceinline__ void prefix_excl(Vec<S>& x, int lane) {
+  Vec<S> y;
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      pos[s][a] = cpos[s][a];
-      vel[s][a] = cvel[s][a];
+      const float up = __shfl_up_sync(kFull, x[s][a], 1);
+      const float wrap = s > 0 ? __shfl_sync(kFull, x[s > 0 ? s - 1 : 0][a], 31) : 0.f;
+      y[s][a] = lane == 0 ? wrap : up;
     }
-  stage<S>(sh.bufA, u, lane);
-  apply_map<S>(sh.Spd, sh.bufA, N, lane, pos);
-  apply_map<S>(sh.Svd, sh.bufA, N, lane, vel);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float t = __shfl_up_sync(kFull, y[s][a], off);
+        if (lane >= off) y[s][a] += t;
+      }
+#pragma unroll
+  for (int s = 1; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) y[s][a] += __shfl_sync(kFull, y[s - 1][a], 31);
+  copy<S>(y, x);
+}
+
+// x_k <- sum_{j>k} x_j over the horizon, per axis (the mirror of
+// prefix_excl, with __shfl_down_sync).
+template <int S>
+__device__ __forceinline__ void suffix_excl(Vec<S>& x, int lane) {
+  Vec<S> y;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float dn = __shfl_down_sync(kFull, x[s][a], 1);
+      const float wrap =
+          s + 1 < S ? __shfl_sync(kFull, x[s + 1 < S ? s + 1 : s][a], 0) : 0.f;
+      y[s][a] = lane == 31 ? wrap : dn;
+    }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float t = __shfl_down_sync(kFull, y[s][a], off);
+        if (lane + off < 32) y[s][a] += t;
+      }
+#pragma unroll
+  for (int s = S - 2; s >= 0; --s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) y[s][a] += __shfl_sync(kFull, y[s + 1][a], 0);
+  copy<S>(y, x);
+}
+
+// yp = (cp / dt^2) S_p x and yv = (cv / dt) S_v x: (S_p/m) x and (S_v/m) x
+// for cp = dt^2/m, cv = dt/m; S_p x and S_v x for cp = dt^2, cv = dt.
+// Lanes k >= N come out nonzero.
+template <int S>
+__device__ __forceinline__ void forward_maps(const Vec<S>& x, float cp, float cv, int lane,
+                                             Vec<S>& yp, Vec<S>& yv) {
+  Vec<S> e;
+  copy<S>(x, e);
+  prefix_excl<S>(e, lane);
+  copy<S>(e, yp);
+  prefix_excl<S>(yp, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      yp[s][a] = cp * fmaf(0.5f, e[s][a], yp[s][a]);
+      yv[s][a] = cv * e[s][a];
+    }
+}
+
+// out = (S_p/m)^T zp + (S_v/m)^T zv = R/2 + F(R + cv zv) with R = F(cp zp).
+// zp and zv must be zero at k >= N; so is out.
+template <int S>
+__device__ __forceinline__ void pullback(const Vec<S>& zp, const Vec<S>& zv, float cp, float cv,
+                                         int lane, Vec<S>& out) {
+  Vec<S> r;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) r[s][a] = cp * zp[s][a];
+  suffix_excl<S>(r, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) out[s][a] = fmaf(cv, zv[s][a], r[s][a]);
+  suffix_excl<S>(out, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) out[s][a] = fmaf(0.5f, r[s][a], out[s][a]);
+}
+
+// diag_j += sum_k (S_p/m)[k,j]^2 hp_k + (S_v/m)[k,j]^2 hv_k.
+template <int S>
+__device__ __forceinline__ void add_map_diagonal(const Vec<S>& hp, const Vec<S>& hv, float cp,
+                                                 float cv, int lane, Vec<S>& diag) {
+  Vec<S> h, r1, r2;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) h[s][a] = (cp * cp) * hp[s][a];
+  copy<S>(h, r1);
+  suffix_excl<S>(r1, lane);
+  copy<S>(r1, r2);
+  suffix_excl<S>(r2, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      r2[s][a] = fmaf(0.25f, h[s][a], fmaf(2.f, r1[s][a] + r2[s][a], (cv * cv) * hv[s][a]));
+  suffix_excl<S>(r2, lane);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) diag[s][a] += r2[s][a];
+}
+
+// pos = p0 + t v0 + S_p a, vel = v0 + S_v a with a = u/m + g (the plain
+// loop's form: the sums run over accelerations, so hover thrust and gravity
+// cancel before they are summed); zeros at k >= N. c0 = p0 + t v0.
+template <int S>
+__device__ __forceinline__ void rollout(const MpcParams& P, int lane, const Vec<S>& c0,
+                                        const float (&v0)[3], const Vec<S>& u, Vec<S>& pos,
+                                        Vec<S>& vel) {
+  Vec<S> acc;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool valid = lane + 32 * s < P.N;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      acc[s][a] = valid ? fmaf(u[s][a], P.inv_m, a == 2 ? P.g_z : 0.f) : 0.f;
+  }
+  forward_maps<S>(acc, P.dt * P.dt, P.dt, lane, pos, vel);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool valid = lane + 32 * s < P.N;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      pos[s][a] = valid ? pos[s][a] + c0[s][a] : 0.f;
+      vel[s][a] = valid ? vel[s][a] + v0[a] : 0.f;
+    }
+  }
+}
+
+// A scenario's live spheres in shared memory, [n][4]: cx, cy, cz, r_safe.
+struct Spheres {
+  const float* s;
+  int n;
+};
+
+// Position weight of step k (terminal at N-1), 0 past the horizon.
+__device__ __forceinline__ float step_weight(const MpcParams& P, int k) {
+  return k < P.N ? (k == P.N - 1 ? P.w_pN : P.w_p) : 0.f;
 }
 
 // Total cost of one scenario (identical on every lane).
 template <int S>
-__device__ __forceinline__ float cost(const MpcParams& P, const Shared& sh, int lane, float vmax,
-                                      const float (&u)[S][3], const float (&pos)[S][3],
-                                      const float (&vel)[S][3], const float (&goal)[S][3]) {
+__device__ __forceinline__ float cost(const MpcParams& P, Spheres sp, int lane, float vmax,
+                                      const Vec<S>& u, const Vec<S>& pos, const Vec<S>& vel,
+                                      const Vec<S>& goal) {
   float D = 0.f;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int k = lane + 32 * s;
     if (k >= P.N) continue;
-    const float wp = (k == P.N - 1) ? P.w_pN : P.w_p;
+    const float wp = step_weight(P, k);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const float pe = pos[s][a] - goal[s][a];
@@ -185,11 +337,12 @@ __device__ __forceinline__ float cost(const MpcParams& P, const Shared& sh, int 
     }
     if (P.use_obstacles) {
       float J = 0.f;
-      for (int o = 0; o < P.K; ++o) {
-        const float* ob = sh.obs + 5 * o;
+#pragma unroll 4
+      for (int o = 0; o < sp.n; ++o) {
+        const float* ob = sp.s + 4 * o;
         const float dx = pos[s][0] - ob[0], dy = pos[s][1] - ob[1], dz = pos[s][2] - ob[2];
         const float d = sqrtf(dx * dx + dy * dy + dz * dz + 1e-9f);
-        const float viol = fmaxf(ob[3] - d, 0.f) * ob[4];
+        const float viol = fmaxf(ob[3] - d, 0.f);
         J += viol * viol;
       }
       D += P.w_obs * J;
@@ -219,48 +372,37 @@ struct Curv {
   float free[S][3];
 };
 
+// out = free * (H + S_p^T h S_p + S_v^T hv S_v + tilt + thrust norm) (free * p)
 template <int S>
-__device__ __forceinline__ void matvec(const MpcParams& P, const Shared& sh, int lane, bool pen,
-                                       const Curv<S>& c, const float (&p)[S][3],
-                                       float (&out)[S][3]) {
-  float dv[S][3];
+__device__ __forceinline__ void matvec(const MpcParams& P, int lane, float cp, float cv,
+                                       float wq, const Curv<S>& c, const Vec<S>& p,
+                                       Vec<S>& out) {
+  Vec<S> dv, zp, zv;
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) dv[s][a] = p[s][a] * c.free[s][a];
-  zero<S>(out);
-  stage<S>(sh.bufA, dv, lane);
-  apply_map<S>(sh.Hd, sh.bufA, P.N, lane, out);
-  if (pen) {
-    float y[S][3], yv[S][3];
-    zero<S>(y);
-    apply_map<S>(sh.Spd, sh.bufA, P.N, lane, y);
-    if (P.use_vel_hinge) {
-      zero<S>(yv);
-      apply_map<S>(sh.Svd, sh.bufA, P.N, lane, yv);
-    }
-    float zb[S][3];
+  forward_maps<S>(dv, cp, cv, lane, zp, zv);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float* h = c.h[s];
-      zb[s][0] = h[0] * y[s][0] + h[3] * y[s][1] + h[4] * y[s][2];
-      zb[s][1] = h[3] * y[s][0] + h[1] * y[s][1] + h[5] * y[s][2];
-      zb[s][2] = h[4] * y[s][0] + h[5] * y[s][1] + h[2] * y[s][2];
-    }
-    stage<S>(sh.bufA, zb, lane);
-    apply_map<S>(sh.Spt, sh.bufA, P.N, lane, out);
-    if (P.use_vel_hinge) {
+  for (int s = 0; s < S; ++s) {
+    const int k = lane + 32 * s;
+    const float w2p = 2.f * step_weight(P, k);
+    const float w2v = k < P.N ? 2.f * P.w_v : 0.f;
+    const float* h = c.h[s];
+    const float y0 = zp[s][0], y1 = zp[s][1], y2 = zp[s][2];
+    zp[s][0] = (w2p + h[0]) * y0 + h[3] * y1 + h[4] * y2;
+    zp[s][1] = h[3] * y0 + (w2p + h[1]) * y1 + h[5] * y2;
+    zp[s][2] = h[4] * y0 + h[5] * y1 + (w2p + h[2]) * y2;
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-#pragma unroll
-        for (int a = 0; a < 3; ++a) yv[s][a] *= c.hv[s][a];
-      stage<S>(sh.bufB, yv, lane);
-      apply_map<S>(sh.Svt, sh.bufB, P.N, lane, out);
-    }
+    for (int a = 0; a < 3; ++a) zv[s][a] *= w2v + c.hv[s][a];
   }
+  pullback<S>(zp, zv, cp, cv, lane, out);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const float dx = dv[s][0], dy = dv[s][1], dz = dv[s][2];
+    out[s][0] = fmaf(wq, dx, out[s][0]);
+    out[s][1] = fmaf(wq, dy, out[s][1]);
+    out[s][2] = fmaf(wq, dz, out[s][2]);
     if (P.use_tilt) {
       const float at = c.tl[s][0], jx = c.tl[s][1], jy = c.tl[s][2], ct = c.tl[s][3];
       const float t = at * (jx * dx + jy * dy - P.tan_max * dz);
@@ -287,86 +429,89 @@ __device__ __forceinline__ void matvec(const MpcParams& P, const Shared& sh, int
 
 // One Newton round; updates u and min_imp in place.
 template <int S>
-__device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& sh, int lane,
-                                             float vmax, bool full, const float (&cpos)[S][3],
-                                             const float (&cvel)[S][3],
-                                             const float (&goal)[S][3], float (&u)[S][3],
-                                             float& min_imp, int cg_iters) {
+__device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int lane,
+                                             float vmax, bool full, const Vec<S>& c0,
+                                             const float (&v0)[3], const Vec<S>& goal,
+                                             const float (&dq)[S], Vec<S>& u, float& min_imp,
+                                             int cg_iters) {
   const int N = P.N;
-  const bool pen = P.use_obstacles || P.use_ground || P.use_vel_hinge;
-  float pos[S][3], vel[S][3];
-  rollout<S>(sh, N, lane, cpos, cvel, u, pos, vel);
-
-  // physical-space gradient and curvature blocks
+  const float cv = P.dt * P.inv_m, cp = P.dt * cv;
+  const float wq = 2.f * (P.w_a * P.inv_m * P.inv_m + P.w_T);
   Curv<S> c;
-  float gpos[S][3], gvel[S][3], g[S][3], dg[S][3];
+  Vec<S> g, dg;
+  float cur;
+  {
+    Vec<S> pos, vel, gpos, gvel;
+    rollout<S>(P, lane, c0, v0, u, pos, vel);
+
+    // physical-space gradient and curvature blocks
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int k = lane + 32 * s;
-    const bool valid = k < N;
-    const float wp = (k == N - 1) ? P.w_pN : P.w_p;
+    for (int s = 0; s < S; ++s) {
+      const int k = lane + 32 * s;
+      const bool valid = k < N;
+      const float wp = step_weight(P, k);
 #pragma unroll
-    for (int a = 0; a < 6; ++a) c.h[s][a] = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      gpos[s][a] = valid ? 2.f * wp * (pos[s][a] - goal[s][a]) : 0.f;
-      gvel[s][a] = valid ? 2.f * P.w_v * vel[s][a] : 0.f;
-      c.hv[s][a] = 0.f;
-      dg[s][a] = 0.f;
-    }
-    if (!valid) continue;
-    if (P.use_obstacles) {
-      for (int o = 0; o < P.K; ++o) {
-        const float* ob = sh.obs + 5 * o;
-        const float dx = pos[s][0] - ob[0], dy = pos[s][1] - ob[1], dz = pos[s][2] - ob[2];
-        const float d = sqrtf(dx * dx + dy * dy + dz * dz + 1e-9f);
-        const float viol = fmaxf(ob[3] - d, 0.f) * ob[4];
-        const float coef = 2.f * P.w_obs * viol / d;
-        gpos[s][0] -= coef * dx;
-        gpos[s][1] -= coef * dy;
-        gpos[s][2] -= coef * dz;
-        const float act = (ob[3] > d ? 1.f : 0.f) * ob[4] * (2.f * P.w_obs);
-        float inv_d2;
-        if (full) {
-          const float hd = viol / d;
-          inv_d2 = act * (1.f + hd) / (d * d);
-          const float diag_c = act * hd;
-          c.h[s][0] -= diag_c;
-          c.h[s][1] -= diag_c;
-          c.h[s][2] -= diag_c;
-        } else {
-          inv_d2 = act / (d * d);
-        }
-        c.h[s][0] += inv_d2 * dx * dx;
-        c.h[s][1] += inv_d2 * dy * dy;
-        c.h[s][2] += inv_d2 * dz * dz;
-        c.h[s][3] += inv_d2 * dx * dy;
-        c.h[s][4] += inv_d2 * dx * dz;
-        c.h[s][5] += inv_d2 * dy * dz;
-      }
-    }
-    if (P.use_ground) {
-      const float gv = fmaxf(P.z_min - pos[s][2], 0.f);
-      gpos[s][2] -= 2.f * P.w_g * gv;
-      c.h[s][2] += (pos[s][2] < P.z_min) ? 2.f * P.w_g : 0.f;
-    }
-    if (P.use_vel_hinge) {
+      for (int a = 0; a < 6; ++a) c.h[s][a] = 0.f;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float v = vel[s][a];
-        const float vv = fmaxf(fabsf(v) - vmax, 0.f);
-        const float sgn = (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
-        gvel[s][a] += 2.f * P.w_vb * sgn * vv;
-        c.hv[s][a] = (fabsf(v) > vmax) ? 2.f * P.w_vb : 0.f;
+        gpos[s][a] = valid ? 2.f * wp * (pos[s][a] - goal[s][a]) : 0.f;
+        gvel[s][a] = valid ? 2.f * P.w_v * vel[s][a] : 0.f;
+        c.hv[s][a] = 0.f;
+        dg[s][a] = 0.f;
+      }
+      if (!valid) continue;
+      if (P.use_obstacles) {
+#pragma unroll 4
+        for (int o = 0; o < sp.n; ++o) {
+          const float* ob = sp.s + 4 * o;
+          const float dx = pos[s][0] - ob[0], dy = pos[s][1] - ob[1], dz = pos[s][2] - ob[2];
+          const float d = sqrtf(dx * dx + dy * dy + dz * dz + 1e-9f);
+          const float viol = fmaxf(ob[3] - d, 0.f);
+          const float coef = 2.f * P.w_obs * viol / d;
+          gpos[s][0] -= coef * dx;
+          gpos[s][1] -= coef * dy;
+          gpos[s][2] -= coef * dz;
+          const float act = ob[3] > d ? 2.f * P.w_obs : 0.f;
+          float inv_d2;
+          if (full) {
+            const float hd = viol / d;
+            inv_d2 = act * (1.f + hd) / (d * d);
+            const float diag_c = act * hd;
+            c.h[s][0] -= diag_c;
+            c.h[s][1] -= diag_c;
+            c.h[s][2] -= diag_c;
+          } else {
+            inv_d2 = act / (d * d);
+          }
+          c.h[s][0] += inv_d2 * dx * dx;
+          c.h[s][1] += inv_d2 * dy * dy;
+          c.h[s][2] += inv_d2 * dz * dz;
+          c.h[s][3] += inv_d2 * dx * dy;
+          c.h[s][4] += inv_d2 * dx * dz;
+          c.h[s][5] += inv_d2 * dy * dz;
+        }
+      }
+      if (P.use_ground) {
+        const float gv = fmaxf(P.z_min - pos[s][2], 0.f);
+        gpos[s][2] -= 2.f * P.w_g * gv;
+        c.h[s][2] += (pos[s][2] < P.z_min) ? 2.f * P.w_g : 0.f;
+      }
+      if (P.use_vel_hinge) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float v = vel[s][a];
+          const float vv = fmaxf(fabsf(v) - vmax, 0.f);
+          const float sgn = (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
+          gvel[s][a] += 2.f * P.w_vb * sgn * vv;
+          c.hv[s][a] = (fabsf(v) > vmax) ? 2.f * P.w_vb : 0.f;
+        }
       }
     }
+    // the line search's reference: the current iterate's cost
+    cur = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
+    // pull back to thrust space
+    pullback<S>(gpos, gvel, cp, cv, lane, g);
   }
-  // pull back to thrust space
-  zero<S>(g);
-  stage<S>(sh.bufA, gpos, lane);
-  stage<S>(sh.bufB, gvel, lane);
-  apply_map<S>(sh.Spt, sh.bufA, N, lane, g);
-  apply_map<S>(sh.Svt, sh.bufB, N, lane, g);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int k = lane + 32 * s;
@@ -447,43 +592,33 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& s
     }
   }
 
-  // Jacobi preconditioner
-  float minv[S][3];
+  // Jacobi preconditioner: diag(H) + diag(S_p^T h S_p + S_v^T hv S_v) + the
+  // thrust-space blocks' diagonal
+  Vec<S> minv;
   {
-    float diag[S][3];
+    Vec<S> hpd;
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float dq = sh.dq[lane + 32 * s];
+    for (int s = 0; s < S; ++s)
 #pragma unroll
-      for (int a = 0; a < 3; ++a) diag[s][a] = dq + dg[s][a];
-    }
-    if (pen) {
-      float hpd[S][3];
+      for (int a = 0; a < 3; ++a) {
+        hpd[s][a] = c.h[s][a];
+        dg[s][a] += dq[s];
+      }
+    add_map_diagonal<S>(hpd, c.hv, cp, cv, lane, dg);
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-#pragma unroll
-        for (int a = 0; a < 3; ++a) hpd[s][a] = c.h[s][a];
-      stage<S>(sh.bufA, hpd, lane);
-      stage<S>(sh.bufB, c.hv, lane);
-      apply_map<S, true>(sh.Spt, sh.bufA, N, lane, diag);
-      if (P.use_vel_hinge) apply_map<S, true>(sh.Svt, sh.bufB, N, lane, diag);
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float dq = sh.dq[lane + 32 * s];
+    for (int s = 0; s < S; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         // The absolute 1e-8 floor keeps idle lanes (dq == 0) at minv = 0
         // instead of 0 / 0 = NaN, which would poison every warp sum.
-        const float den = full ? fmaxf(fmaxf(diag[s][a], 0.1f * dq), 1e-8f)
-                               : fmaxf(diag[s][a], 1e-8f);
+        const float den = full ? fmaxf(fmaxf(dg[s][a], 0.1f * dq[s]), 1e-8f)
+                               : fmaxf(dg[s][a], 1e-8f);
         minv[s][a] = c.free[s][a] / den;
       }
-    }
   }
 
   // Steihaug-truncated preconditioned CG on the free subspace
-  float d[S][3], r[S][3], z0[S][3], p[S][3];
+  Vec<S> d, r, z0, p;
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -495,8 +630,8 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& s
     }
   float rz = vdot<S>(r, z0);
   for (int it = 0; it < cg_iters; ++it) {
-    float ap[S][3];
-    matvec<S>(P, sh, lane, pen, c, p, ap);
+    Vec<S> ap;
+    matvec<S>(P, lane, cp, cv, wq, c, p, ap);
     const float pap = vdot<S>(p, ap);
     const float pp = vdot<S>(p, p);
     // once a direction shows (near-)negative curvature the scenario's
@@ -504,7 +639,7 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& s
     // change nothing, so the warp leaves the loop
     if (!(pap > 1e-8f * pp)) break;
     const float alpha = rz / fmaxf(pap, 1e-12f);
-    float z[S][3];
+    Vec<S> z;
 #pragma unroll
     for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -524,17 +659,12 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& s
   if (full) {
     // negative curvature on the first CG step leaves d = 0: fall back to
     // preconditioned steepest descent
-    float dn[S][3];
+    Vec<S> dn;
 #pragma unroll
     for (int s = 0; s < S; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) dn[s][a] = fabsf(d[s][a]);
-    if (!(vsum<S>(dn) > 0.f)) {
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-#pragma unroll
-        for (int a = 0; a < 3; ++a) d[s][a] = z0[s][a];
-    }
+    if (!(vsum<S>(dn) > 0.f)) copy<S>(z0, d);
   }
 #pragma unroll
   for (int s = 0; s < S; ++s)
@@ -543,16 +673,12 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& s
 
   // projected line search: keep the current iterate unless a candidate is
   // strictly better (earliest alpha on ties)
-  const float cur = cost<S>(P, sh, lane, vmax, u, pos, vel, goal);
   float best = cur;
-  float bu[S][3];
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int a = 0; a < 3; ++a) bu[s][a] = u[s][a];
+  Vec<S> bu;
+  copy<S>(u, bu);
   for (int ia = 0; ia < P.n_alpha; ++ia) {
     const float alpha = P.alphas[ia];
-    float cand[S][3];
+    Vec<S> cand, pc, vc;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const bool valid = lane + 32 * s < N;
@@ -561,27 +687,20 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, const Shared& s
         cand[s][a] =
             valid ? fminf(fmaxf(u[s][a] + alpha * d[s][a], P.lb[a]), P.ub[a]) : 0.f;
     }
-    float pc[S][3], vc[S][3];
-    rollout<S>(sh, N, lane, cpos, cvel, cand, pc, vc);
-    const float cj = cost<S>(P, sh, lane, vmax, cand, pc, vc, goal);
+    rollout<S>(P, lane, c0, v0, cand, pc, vc);
+    const float cj = cost<S>(P, sp, lane, vmax, cand, pc, vc, goal);
     if (cj < best) {
       best = cj;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-#pragma unroll
-        for (int a = 0; a < 3; ++a) bu[s][a] = cand[s][a];
+      copy<S>(cand, bu);
     }
   }
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int a = 0; a < 3; ++a) u[s][a] = bu[s][a];
+  copy<S>(bu, u);
   const float imp = (cur - best) / (1.f + fabsf(best));
   min_imp = fminf(min_imp, imp);
 }
 
 template <int S>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, S == 1 ? 4 : 2)
     mpc_solve_kernel(const MpcParams P, const float* __restrict__ consts,
                      const float* __restrict__ u0, const float* __restrict__ p0,
                      const float* __restrict__ v0, const float* __restrict__ goal_in,
@@ -590,66 +709,60 @@ __global__ void __launch_bounds__(kWarps * 32)
                      float* __restrict__ pos_out, float* __restrict__ vel_out,
                      float* __restrict__ imp_out, float* __restrict__ cost_out) {
   constexpr int LD = 32 * S;
-  extern __shared__ float smem[];
+  extern __shared__ float smem[];  // [kWarps][K][4]: each warp's live spheres
   const int N = P.N, K = P.K;
-  const int nconst = 5 * N * LD + 4 * LD;
-  for (int i = threadIdx.x; i < nconst; i += blockDim.x) smem[i] = consts[i];
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + warp;
-  float* wbuf = smem + nconst + warp * (6 * LD + 5 * K);
-  Shared sh;
-  sh.Hd = smem;
-  sh.Spd = sh.Hd + N * LD;
-  sh.Svd = sh.Spd + N * LD;
-  sh.Spt = sh.Svd + N * LD;
-  sh.Svt = sh.Spt + N * LD;
-  sh.tv = sh.Svt + N * LD;
-  sh.spg = sh.tv + LD;
-  sh.svg = sh.spg + LD;
-  sh.dq = sh.svg + LD;
-  sh.bufA = wbuf;
-  sh.bufB = wbuf + 3 * LD;
-  float* obs_s = wbuf + 6 * LD;
-  sh.obs = obs_s;
-  if (b < P.B) {
-    for (int i = lane; i < 5 * K; i += 32) {
-      const int o = i / 5, f = i % 5;
-      obs_s[i] = f < 4 ? obs_in[((size_t)b * K + o) * 4 + f] : mask_in[(size_t)b * K + o];
+  if (b >= P.B) return;  // each warp touches only its own shared memory
+  // Keep the live spheres, in order, at the front: a masked sphere adds
+  // exactly 0 to every sum, so the loops skip it without a branch.
+  float* live = smem + warp * 4 * K;
+  int n_live = 0;
+  for (int base = 0; base < K; base += 32) {
+    const int o = base + lane;
+    const bool on = o < K && mask_in[(size_t)b * K + o] != 0.f;
+    const unsigned m = __ballot_sync(kFull, on);
+    if (on) {
+      float* dst = live + 4 * (n_live + __popc(m & ((1u << lane) - 1u)));
+#pragma unroll
+      for (int f = 0; f < 4; ++f) dst[f] = obs_in[((size_t)b * K + o) * 4 + f];
     }
+    n_live += __popc(m);
   }
-  __syncthreads();
-  if (b >= P.B) return;  // no block-wide barrier follows
+  __syncwarp();
+  const Spheres sp{live, P.use_obstacles ? n_live : 0};
 
+  // constants: t (k dt) and diag(H), each LD long, zero past N
   const float vmax = vcap ? vcap[b] : P.v_max;
-  float u[S][3], goal[S][3], cpos[S][3], cvel[S][3];
+  const float vel0[3] = {v0[b * 3], v0[b * 3 + 1], v0[b * 3 + 2]};
+  float dq[S];
+  Vec<S> u, goal, c0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int k = lane + 32 * s;
     const bool valid = k < N;
+    dq[s] = consts[LD + k];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const size_t at = ((size_t)b * N + k) * 3 + a;
-      const float ga = a == 2 ? P.g_z : 0.f;
       u[s][a] = valid ? u0[at] : 0.f;
       goal[s][a] = valid ? goal_in[at] : 0.f;
-      cpos[s][a] = valid ? p0[b * 3 + a] + sh.tv[k] * v0[b * 3 + a] + sh.spg[k] * ga : 0.f;
-      cvel[s][a] = valid ? v0[b * 3 + a] + sh.svg[k] * ga : 0.f;
+      c0[s][a] = valid ? p0[b * 3 + a] + consts[k] * vel0[a] : 0.f;
     }
   }
 
   float min_imp = INFINITY;
   for (int i = 0; i < P.n_gn; ++i)
-    newton_round<S>(P, sh, lane, vmax, false, cpos, cvel, goal, u, min_imp, P.cg_iters);
+    newton_round<S>(P, sp, lane, vmax, false, c0, vel0, goal, dq, u, min_imp, P.cg_iters);
   if (P.n_full > 0) {
     min_imp = INFINITY;  // the stall tracker restarts with stage 2
     for (int i = 0; i < P.n_full; ++i)
-      newton_round<S>(P, sh, lane, vmax, true, cpos, cvel, goal, u, min_imp, P.cg_iters);
+      newton_round<S>(P, sp, lane, vmax, true, c0, vel0, goal, dq, u, min_imp, P.cg_iters);
   }
 
-  float pos[S][3], vel[S][3];
-  rollout<S>(sh, N, lane, cpos, cvel, u, pos, vel);
-  const float J = cost<S>(P, sh, lane, vmax, u, pos, vel, goal);
+  Vec<S> pos, vel;
+  rollout<S>(P, lane, c0, vel0, u, pos, vel);
+  const float J = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int k = lane + 32 * s;
@@ -673,9 +786,7 @@ cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, con
                    const float* v0, const float* goal, const float* obs, const float* mask,
                    const float* vcap, float* u_out, float* pos_out, float* vel_out,
                    float* imp_out, float* cost_out, cudaStream_t stream) {
-  constexpr int LD = 32 * S;
-  const size_t smem =
-      sizeof(float) * (size_t)(5 * P.N * LD + 4 * LD + kWarps * (6 * LD + 5 * P.K));
+  const size_t smem = sizeof(float) * (size_t)(kWarps * 4 * P.K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         mpc_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -60,6 +60,40 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libdart_kernels-{h.hexdigest()[:16]}.so"
 
 
+def compile_library(sources: list[pathlib.Path], out: pathlib.Path) -> str:
+    """Compile ``sources`` (one nvcc each, all started together, with
+    ``NVCC_FLAGS``) and link them into the shared library ``out``, written
+    under a temporary name and moved into place. Returns nvcc's output;
+    raises if a step fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log[-4000:]}")
+        link = subprocess.run(
+            [nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{log[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use. Raises if the build
     fails; there is no fallback."""
@@ -69,34 +103,8 @@ def load() -> ctypes.CDLL:
             return _lib
         out = library_path()
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
-            try:
-                procs = [
-                    subprocess.Popen(
-                        [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                    )
-                    for src, obj in zip(_sources(), objs)
-                ]
-                logs = [p.communicate()[0] for p in procs]
-                build_log = "".join(logs)
-                if any(p.returncode != 0 for p in procs):
-                    raise RuntimeError(f"nvcc failed:\n{build_log[-4000:]}")
-                link = subprocess.run(
-                    [nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
-                    capture_output=True, text=True,
-                )
-                build_log += link.stdout + link.stderr
-                if link.returncode != 0:
-                    raise RuntimeError(f"nvcc link failed:\n{build_log[-4000:]}")
-                os.replace(tmp, out)
-            finally:
-                tmp.unlink(missing_ok=True)
-                for obj in objs:
-                    obj.unlink(missing_ok=True)
+            build_log = compile_library(_sources(), out)
             build_seconds = time.perf_counter() - t0
         _lib = ctypes.CDLL(str(out))
         return _lib

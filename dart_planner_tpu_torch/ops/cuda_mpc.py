@@ -9,10 +9,12 @@ device it launches the kernel or raises; only for tensors on the CPU does it
 run :func:`solve_thrusts_plain`, the plain PyTorch Newton loop with the same
 signature. ``LAUNCHES`` counts the kernel's launches.
 
-The kernel's constants (the per-axis quadratic Hessian H and the rollout
-maps S_p/m, S_v/m in the kernel's shared-memory layout) are built once per
-configuration and device, on the host in float64, cast to float32 and
-uploaded.
+The kernel applies the rollout maps S_p/m, S_v/m, their transposes and the
+quadratic Hessian as warp scans (``csrc/mpc_solve.cu``;
+:func:`~dart_planner_tpu_torch.ops.dynamics.apply_structured` is the same
+identity in plain PyTorch). Its only constants are two step vectors, built
+once per configuration and device on the host in float64, cast to float32
+and uploaded.
 """
 
 from __future__ import annotations
@@ -55,18 +57,23 @@ class _Params(ctypes.Structure):
             "w_obs", "w_g", "z_min", "w_vb", "v_max", "w_tilt", "tan_max",
             "w_tn", "u_max",
         )
-    ] + [("lb", _c_float * 3), ("ub", _c_float * 3)]
+    ] + [("lb", _c_float * 3), ("ub", _c_float * 3), ("dt", _c_float)]
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = _build.load()
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``mpc_solve_launch`` on a loaded library."""
     lib.mpc_params_size.restype = _c_int
     lib.mpc_params_size.argtypes = []
     lib.mpc_error_string.restype = ctypes.c_char_p
     lib.mpc_error_string.argtypes = [_c_int]
     lib.mpc_solve_launch.restype = _c_int
     lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 14
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = bind(_build.load())
     if lib.mpc_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError(
             f"MpcParams layout mismatch: C {lib.mpc_params_size()} bytes, "
@@ -89,40 +96,19 @@ def lane_stride(N: int) -> int:
 
 
 def constants_host(config) -> torch.Tensor:
-    """The kernel's constant block, float32 on the CPU, in the order it
-    reads it: H, S_p/m, S_v/m in the direct layout (``M[j*LD + k] =
-    M[k, j]``), S_p/m, S_v/m in the transposed layout (``M[k*LD + i] =
-    M[k, i]``), then the step vectors t, S_p 1, S_v 1 and diag(H).
-    Columns and entries of steps k >= N are zero."""
+    """The kernel's constant block, float32 on the CPU: the step vectors t
+    (``k dt``) and diag(H), each ``lane_stride(N)`` long and zero at steps
+    k >= N."""
     N = config.prediction_horizon
     LD = lane_stride(N)
-    f32 = torch.float32
-    S_p, S_v, t = dynamics.rollout_matrices(N, float(config.dt))
-    Sp = torch.as_tensor(S_p, dtype=f32) / config.mass
-    Sv = torch.as_tensor(S_v, dtype=f32) / config.mass
-    H = torch.as_tensor(
-        costs.quadratic_hessian(
-            N, config.dt, config.mass, config.gravity, config.weights
-        ),
-        dtype=f32,
+    _, _, t = dynamics.rollout_matrices(N, float(config.dt))
+    H = costs.quadratic_hessian(
+        N, config.dt, config.mass, config.gravity, config.weights
     )
-
-    def rows(M):
-        out = torch.zeros(N, LD, dtype=f32)
-        out[:, :N] = M
-        return out.reshape(-1)
-
-    def vec(v):
-        out = torch.zeros(LD, dtype=f32)
-        out[:N] = torch.as_tensor(np.asarray(v), dtype=f32)
-        return out
-
-    return torch.cat(
-        [
-            rows(H.T), rows(Sp.T), rows(Sv.T), rows(Sp), rows(Sv),
-            vec(t), vec(S_p.sum(1)), vec(S_v.sum(1)), vec(torch.diagonal(H)),
-        ]
-    )
+    out = torch.zeros(2, LD, dtype=torch.float32)
+    for row, v in enumerate((t, np.diagonal(H))):
+        out[row, :N] = torch.tensor(np.array(v), dtype=torch.float32)
+    return out.reshape(-1)
 
 
 @functools.lru_cache(maxsize=32)
@@ -149,7 +135,7 @@ def _params(config, B: int, K: int, use_obstacles: bool) -> _Params:
         w_a=w.acceleration, w_T=w.thrust, w_obs=w.obstacle, w_g=w.ground,
         z_min=w.ground_altitude, w_vb=w.velocity_bound, v_max=w.max_velocity,
         w_tilt=w.tilt, tan_max=w.tan_max_tilt, w_tn=w.thrust_norm,
-        u_max=w.max_thrust_norm,
+        u_max=w.max_thrust_norm, dt=config.dt,
     )
     P.alphas[: len(alphas)] = alphas
     P.lb[:] = lb

@@ -35,6 +35,36 @@ def rollout_matrices(N: int, dt: float) -> tuple[np.ndarray, np.ndarray, np.ndar
     return S_p, S_v, t
 
 
+def _exclusive_prefix(x: Tensor) -> Tensor:
+    """sum_{j<k} x_j over the horizon axis of (..., N, 3)."""
+    c = torch.cumsum(x, dim=-2)
+    return torch.cat([torch.zeros_like(c[..., :1, :]), c[..., :-1, :]], dim=-2)
+
+
+def _exclusive_suffix(x: Tensor) -> Tensor:
+    """sum_{j>k} x_j over the horizon axis of (..., N, 3)."""
+    return _exclusive_prefix(x.flip(-2)).flip(-2)
+
+
+STRUCTURED_MAPS = ("S_p", "S_v", "S_p^T", "S_v^T")
+
+
+def apply_structured(kind: str, x: Tensor, dt: float) -> Tensor:
+    """``M @ x`` over the horizon axis of (..., N, 3) for M one of
+    :data:`STRUCTURED_MAPS`, by prefix or suffix sums in place of the dense
+    maps of :func:`rollout_matrices`. With E the exclusive prefix sum,
+    ``S_v x = dt E(x)`` and ``S_p x = dt^2 (E(x) / 2 + E(E(x)))``; the
+    transposes are the same with the exclusive suffix sum. The CUDA solver
+    kernel applies the maps by these identities, as warp scans."""
+    if kind not in STRUCTURED_MAPS:
+        raise ValueError(f"kind must be one of {STRUCTURED_MAPS}, got {kind!r}")
+    scan = _exclusive_suffix if kind.endswith("^T") else _exclusive_prefix
+    e = scan(x)
+    if kind.startswith("S_v"):
+        return dt * e
+    return (dt * dt) * (0.5 * e + scan(e))
+
+
 def accel_from_thrust(u: Tensor, mass: float, gravity_vec: Tensor) -> Tensor:
     """a_k = u_k / m + g_vec."""
     return u / mass + gravity_vec

@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from dart_planner_tpu_torch.common.device import resolve_device
+
 Tensor = torch.Tensor
 
 _LOGODDS_HIT = float(np.log(0.7 / 0.3))  # p_hit = 0.7
@@ -71,8 +73,9 @@ def unit_linspace(num: int, dtype=torch.float32, device="cpu") -> Tensor:
 
 
 def create_map(config: MapperConfig, batch_shape: tuple = (), dtype=torch.float32,
-               device="cpu") -> VoxelMap:
+               device=None) -> VoxelMap:
     batch_shape = tuple(batch_shape)
+    device = resolve_device(device)
     return VoxelMap(
         log_odds=torch.zeros(batch_shape + tuple(config.grid_size), dtype=dtype,
                              device=device),
@@ -390,10 +393,10 @@ class GeometricMapper:
         resolution: float = 0.5,
         max_range: float = 50.0,
         config: Optional[MapperConfig] = None,
-        device="cpu",
+        device=None,
     ):
         self.config = config or MapperConfig(resolution=resolution, max_range=max_range)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.map = create_map(self.config, device=self.device)
         self.total_queries = 0
 

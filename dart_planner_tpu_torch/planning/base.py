@@ -104,13 +104,15 @@ class PlannerFactory:
         cls._planners[name] = planner_class
 
     @classmethod
-    def create(cls, name: str, config: Optional[Dict[str, Any]] = None):
+    def create(cls, name: str, config: Optional[Dict[str, Any]] = None, **kwargs):
+        """An instance of the planner registered as ``name``; ``kwargs``
+        (``device`` for example) go to its constructor."""
         if name not in cls._planners:
             raise PlanningError(
                 f"Unknown planner: {name}. Available: {cls.list_available()}"
             )
         klass = cls._planners[name]
-        return klass(config) if config is not None else klass()
+        return klass(config, **kwargs) if config is not None else klass(**kwargs)
 
     @classmethod
     def list_available(cls) -> List[str]:

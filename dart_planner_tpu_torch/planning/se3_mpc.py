@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from dart_planner_tpu_torch.common import frames
+from dart_planner_tpu_torch.common.device import default_device, resolve_device
 from dart_planner_tpu_torch.common.types import DroneState, Trajectory
 from dart_planner_tpu_torch.ops import costs, cuda_mpc, dynamics, so3
 from dart_planner_tpu_torch.planning.base import BasePlanner
@@ -188,9 +189,9 @@ def make_problem(
     ``config.max_obstacles`` and adds the safety margin to their radii.
 
     ``device=None`` keeps ``position``'s device when it is a tensor and
-    uses the CPU otherwise."""
+    uses the card otherwise."""
     if device is None:
-        device = position.device if isinstance(position, Tensor) else "cpu"
+        device = position.device if isinstance(position, Tensor) else default_device()
     kw = dict(dtype=dtype, device=device)
     K = config.max_obstacles
     p0 = torch.as_tensor(position, **kw)
@@ -792,12 +793,12 @@ class SE3MPCPlanner(BasePlanner):
     device between replans. Registered as ``"se3_mpc"`` in
     :class:`~dart_planner_tpu_torch.planning.base.PlannerFactory`."""
 
-    def __init__(self, config: SE3MPCConfig | dict | None = None, device="cpu"):
+    def __init__(self, config: SE3MPCConfig | dict | None = None, device=None):
         if isinstance(config, dict):
             config = SE3MPCConfig(**config)
         super().__init__(config._asdict() if config else None)
         self.config = config or SE3MPCConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.goal_position: Optional[np.ndarray] = None
         self.last_solution: Optional[Tensor] = None
         self.warm_start_enabled = True

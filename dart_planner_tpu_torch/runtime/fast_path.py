@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dart_planner_tpu_torch.common.device import resolve_device
 from dart_planner_tpu_torch.planning import se3_mpc
 
 # Setpoint = horizon step 1 (the first future state; step 0 is now).
@@ -29,11 +30,11 @@ class PlannerFastPath:
     def __init__(
         self,
         config: Optional[se3_mpc.SE3MPCConfig] = None,
-        device="cpu",
+        device=None,
         method: str = "auto",
     ):
         self.config = config or se3_mpc.SE3MPCConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._method = method
         self._u: Optional[torch.Tensor] = None
 

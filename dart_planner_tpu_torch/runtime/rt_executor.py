@@ -4,7 +4,9 @@ Python façade over ``native/rt_executor.cpp`` with the reference
 extension's ergonomics (``RealTimeControlLoop`` with start/stop/
 set_state/get_command/get_stats + ``create_control_loop``,
 rt_control_extension.pyx:79,487). The shared library is built with g++ on
-first use and cached next to the source; if no compiler is available the
+first use into ``build/native/`` at the root of the checkout (its own file,
+written under a temporary name and moved into place, so no process loads a
+half-written library); if no compiler is available the
 pure-Python :class:`PythonControlLoop` fallback keeps the API alive
 (mirroring the reference's optional-extension design,
 rt_control_wrapper.py graceful fallback).
@@ -13,6 +15,7 @@ rt_control_wrapper.py graceful fallback).
 from __future__ import annotations
 
 import ctypes
+import os
 import pathlib
 import subprocess
 import threading
@@ -23,8 +26,9 @@ import numpy as np
 
 from dart_planner_tpu_torch.common.errors import RealTimeError
 
-_NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
-_LIB_PATH = _NATIVE_DIR / "librt_executor.so"
+_ROOT = pathlib.Path(__file__).resolve().parents[2]
+_SOURCE = _ROOT / "native" / "rt_executor.cpp"
+_LIB_PATH = _ROOT / "build" / "native" / "librt_executor.so"
 
 MAX_CONTROL_FREQUENCY = 1000.0  # Hz (pyx:28)
 DEADLINE_MARGIN = 50e-6  # s (pyx:31)
@@ -34,10 +38,11 @@ _lib_error: Optional[str] = None
 
 
 def _build_library() -> bool:
-    src = _NATIVE_DIR / "rt_executor.cpp"
-    if not src.exists():
+    if not _SOURCE.exists():
         return False
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
     try:
+        _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(
             [
                 "g++",
@@ -46,18 +51,21 @@ def _build_library() -> bool:
                 "-std=c++17",
                 "-fPIC",
                 "-shared",
-                str(src),
+                str(_SOURCE),
                 "-o",
-                str(_LIB_PATH),
+                str(tmp),
                 "-lpthread",
             ],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, _LIB_PATH)
         return True
     except (subprocess.SubprocessError, OSError):
         return False
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dart_planner_tpu_torch.common.device import default_device
 from dart_planner_tpu_torch.common.types import DroneState
 from dart_planner_tpu_torch.control import geometric
 from dart_planner_tpu_torch.ops import costs, cuda_rollout
@@ -414,10 +415,11 @@ def sample_fleet(
     """Randomized fleet initial conditions: (generator, states, goals).
 
     Starts and goals are drawn on ``generator`` (a CPU generator) and put
-    on ``start_center``'s device (the CPU when it is not a tensor). The
+    on ``start_center``'s device (the card when it is not a tensor). The
     generator comes back first, in the place of the JAX package's episode
     key: the episode's draws continue its stream."""
-    device = start_center.device if isinstance(start_center, Tensor) else "cpu"
+    device = (start_center.device if isinstance(start_center, Tensor)
+              else default_device())
     f32 = torch.float32
     sc = torch.as_tensor(start_center, dtype=f32).cpu()
     gc = torch.as_tensor(goal_center, dtype=f32).cpu()

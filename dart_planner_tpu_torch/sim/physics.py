@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dart_planner_tpu_torch.common import frames
+from dart_planner_tpu_torch.common.device import resolve_device
 from dart_planner_tpu_torch.common.types import ControlCommand, DroneState, _Replace
 from dart_planner_tpu_torch.ops import so3
 
@@ -65,10 +66,12 @@ class RigidBodyState(_Replace):
 
 
 def sample_wind(generator: torch.Generator, batch_shape: tuple, mean: float,
-                std: float, dtype=torch.float32, device="cpu") -> Tensor:
+                std: float, dtype=torch.float32, device=None) -> Tensor:
     """Constant-per-episode wind vector: a uniform direction times a
     magnitude ~ N(mean, std). Drawn on ``generator`` (a CPU generator, so a
-    CPU and a GPU run see the same winds), then moved to ``device``."""
+    CPU and a GPU run see the same winds), then moved to ``device``
+    (default: the card)."""
+    device = resolve_device(device)
     shape = tuple(batch_shape)
     direction = torch.randn(shape + (3,), generator=generator, dtype=dtype)
     direction = direction / torch.clamp(

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from dart_planner_tpu_torch.common.device import default_device
 from dart_planner_tpu_torch.perception import mapper as gm
 
 Tensor = torch.Tensor
@@ -72,8 +73,9 @@ def sample_worlds(config: WorldConfig, generator: torch.Generator, n: int,
     Spheres sit on the start -> goal corridor (fraction t in [0.25, 0.75])
     with lateral and vertical jitter, then are pushed out of the start and
     goal keepout balls along the lateral direction. Drawn on ``generator``
-    (a CPU generator), placed on ``starts``' device."""
-    device = starts.device if isinstance(starts, Tensor) else "cpu"
+    (a CPU generator), placed on ``starts``' device (the card when it is
+    not a tensor)."""
+    device = starts.device if isinstance(starts, Tensor) else default_device()
     f32 = torch.float32
     K = config.num_obstacles
     shape = (n, K, 1)

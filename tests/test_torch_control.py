@@ -99,7 +99,7 @@ def _torch_inputs(cfg, d):
     sp = T.ControlSetpoint(position=a["sp_pos"], velocity=a["sp_vel"],
                            acceleration=a["sp_acc"], yaw=a["yaw"],
                            yaw_rate=torch.zeros(B))
-    st = T.ControllerState.zeros(cfg, (B,)).replace(
+    st = T.ControllerState.zeros(cfg, (B,), device="cpu").replace(
         integral_vel_error=a["integral"], last_torque_saturated=a["lt_sat"],
         unsaturated_thrust=a["uns_thrust"], unsaturated_torque=a["uns_torque"],
         failsafe_count=a["count"], last_valid_thrust=a["last_valid"],
@@ -198,7 +198,7 @@ def test_tilt_limit_matches_jax():
 def test_controller_state_zeros_fields():
     jcfg, tcfg = _configs("clamping", "lee")
     js = J.ControllerState.zeros(jcfg, (2, 3))
-    ts = T.ControllerState.zeros(tcfg, (2, 3))
+    ts = T.ControllerState.zeros(tcfg, (2, 3), device="cpu")
     assert [f for f in js.__dataclass_fields__] == [f for f in ts.__dataclass_fields__]
     for name in js.__dataclass_fields__:
         a, b = np.asarray(getattr(js, name)), getattr(ts, name).numpy()
@@ -223,12 +223,13 @@ def test_facade_halves_gains_on_first_failsafe():
     """Bad tracking for longer than the trigger: both facades latch the
     failsafe, halve the gains once, and agree on every command."""
     jcfg, tcfg = _configs("clamping", "lee")
-    jc, tc = J.GeometricController(jcfg), T.GeometricController(tcfg)
+    jc, tc = J.GeometricController(jcfg), T.GeometricController(tcfg, device="cpu")
     far, vel = (8.0, 0.0, 4.0), (0.0, 3.0, 0.0)
     for i in range(9):
         ts = 0.01 * (i + 1)
         jd = JDroneState.create(timestamp=ts, position=(0.0, 0.0, 4.0), velocity=vel)
-        td = DroneState.create(timestamp=ts, position=(0.0, 0.0, 4.0), velocity=vel)
+        td = DroneState.create(timestamp=ts, position=(0.0, 0.0, 4.0), velocity=vel,
+                                device="cpu")
         jcmd = jc.compute_control(jd, far, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
         tcmd = tc.compute_control(td, far, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
         np.testing.assert_allclose(float(tcmd.thrust), float(jcmd.thrust), atol=1e-5)

@@ -71,7 +71,7 @@ def _both(config, arrays, use_obstacles=True):
     jcfg = J.SE3MPCConfig(**config._asdict())
     obs = obs if use_obstacles else None
     pj = J.make_problem(p0, v0, goal, obstacles=obs, config=jcfg)
-    pt = T.make_problem(p0, v0, goal, obstacles=obs, config=config)
+    pt = T.make_problem(p0, v0, goal, obstacles=obs, config=config, device="cpu")
     u0 = np.asarray(J.initialize_thrusts(jcfg, pj), np.float32)
     return jcfg, pj, pt, u0
 
@@ -135,7 +135,7 @@ def test_plain_uniform_vcap_matches_static():
     """Problem.v_cap == max_velocity reproduces the static cap exactly."""
     rng = np.random.default_rng(7)
     p0, v0, goal, obs = _arrays(rng, 16)
-    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG)
+    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG, device="cpu")
     u0 = T.initialize_thrusts(CFG, prob)
     vcap = torch.full((16,), CFG.max_velocity)
     r0 = _plain(CFG, prob, u0)
@@ -147,7 +147,7 @@ def test_plain_uniform_vcap_matches_static():
 def test_fused_wrapper_on_cpu_runs_plain_and_counts_nothing():
     rng = np.random.default_rng(2)
     p0, v0, goal, obs = _arrays(rng, 3)
-    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG)
+    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG, device="cpu")
     u0 = T.initialize_thrusts(CFG, prob)
     before = cuda_mpc.LAUNCHES
     fused = cuda_mpc.solve_thrusts_fused(CFG, prob, u0)
@@ -159,41 +159,31 @@ def test_fused_wrapper_on_cpu_runs_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("N", [8, 12, 20, 40])
 def test_kernel_constant_block_layout(N):
-    """Apply the kernel's constant block as the kernel does (lane k reads
-    ``M[j * LD + k]`` against a staged vector x_j) and recover the rollout
-    maps, the quadratic Hessian and their transposes."""
+    """The kernel's constant block is two step vectors (t, diag H), zero
+    past N. Applied as the kernel applies them, beside the structured maps
+    over the accelerations, they reproduce ``rollout_linear``."""
+    from dart_planner_tpu_torch.ops import costs
+
     config = T.SE3MPCConfig(prediction_horizon=N)
     LD = cuda_mpc.lane_stride(N)
     c = cuda_mpc.constants_host(config)
-    assert c.numel() == 5 * N * LD + 4 * LD
-    blocks = c[: 5 * N * LD].reshape(5, N, LD)
-    tv, spg, svg, dq = c[5 * N * LD:].reshape(4, LD)
-    x = torch.randn(N, generator=torch.Generator().manual_seed(N))
-
-    def apply(M):  # y[k] = sum_j M[j * LD + k] x[j]
-        return (M * x[:, None]).sum(0)
-
-    S_p, S_v, t = dynamics.rollout_matrices(N, config.dt)
-    Sp = torch.as_tensor(S_p, dtype=torch.float32) / config.mass
-    Sv = torch.as_tensor(S_v, dtype=torch.float32) / config.mass
-    from dart_planner_tpu_torch.ops import costs
-
-    H = torch.as_tensor(
-        costs.quadratic_hessian(N, config.dt, config.mass, config.gravity,
-                                config.weights), dtype=torch.float32,
-    )
-    expect = [H @ x, Sp @ x, Sv @ x, Sp.T @ x, Sv.T @ x]
-    for blk, e in zip(blocks, expect):
-        y = apply(blk)
-        # float32 sums in another order: errors scale with the largest term
-        scale = float((blk[:, :N].abs() * x.abs()[:, None]).sum(0).max())
-        torch.testing.assert_close(y[:N], e, rtol=0, atol=1e-6 * scale)
-        assert torch.all(y[N:] == 0)  # idle lanes read exact zeros
-    torch.testing.assert_close(tv[:N], torch.as_tensor(t, dtype=torch.float32))
-    torch.testing.assert_close(spg[:N], torch.as_tensor(S_p.sum(1), dtype=torch.float32))
-    torch.testing.assert_close(svg[:N], torch.as_tensor(S_v.sum(1), dtype=torch.float32))
-    torch.testing.assert_close(dq[:N], torch.diagonal(H))
-    assert torch.all(dq[N:] == 0) and torch.all(tv[N:] == 0)
+    assert c.numel() == 2 * LD and c.dtype == torch.float32
+    tv, dq = c.reshape(2, LD)
+    _, _, t = dynamics.rollout_matrices(N, config.dt)
+    H = costs.quadratic_hessian(N, config.dt, config.mass, config.gravity, config.weights)
+    for got, want in ((tv, t), (dq, np.diagonal(H))):
+        torch.testing.assert_close(got[:N], torch.tensor(np.array(want), dtype=torch.float32))
+        assert torch.all(got[N:] == 0)  # idle lanes read exact zeros
+    gen = torch.Generator().manual_seed(N)
+    u = 15.0 * torch.rand(2, N, 3, generator=gen)
+    p0, v0 = torch.randn(2, 3, generator=gen), torch.randn(2, 3, generator=gen)
+    g = torch.tensor([0.0, 0.0, -config.gravity])
+    a = u / config.mass + g
+    pos = p0[:, None] + tv[:N, None] * v0[:, None] + dynamics.apply_structured("S_p", a, config.dt)
+    vel = v0[:, None] + dynamics.apply_structured("S_v", a, config.dt)
+    rp, rv, _ = dynamics.rollout_linear(u, p0, v0, config.dt, config.mass, g)
+    torch.testing.assert_close(pos, rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(vel, rv, rtol=0, atol=1e-5)
 
 
 def test_kernel_params_follow_config():
@@ -201,6 +191,7 @@ def test_kernel_params_follow_config():
     assert (p.n_gn, p.n_full, p.cg_iters, p.n_alpha) == (6, 6, 10, 6)
     assert list(p.alphas)[:6] == pytest.approx([1.0, 0.5, 0.25, 0.1, 0.03, 0.01])
     assert (p.use_ground, p.use_vel_hinge, p.use_tilt, p.use_tnorm) == (1, 1, 1, 1)
+    assert p.dt == pytest.approx(0.1)
     tail = T.SE3MPCConfig()._replace(
         max_iterations=8, gn_warmup_iterations=0, cg_iterations=25,
         line_search_alphas=(1.0, 0.5, 0.25, 0.05),
@@ -274,6 +265,54 @@ def test_cuda_kernel_one_round_matches_plain(cuda_device, N, stage):
     torch.testing.assert_close(k[4], p[4], rtol=1e-4, atol=0)
 
 
+def _hinge_activity(config, prob, u):
+    """Scenarios in which each hinge term of the cost is active at ``u``."""
+    from dart_planner_tpu_torch.ops import costs
+
+    w = config.weights
+    gvec = torch.tensor([0.0, 0.0, -config.gravity], device=u.device)
+    pos, vel, _ = dynamics.rollout_linear(u, prob.p0, prob.v0, config.dt, config.mass, gvec)
+    lat = torch.linalg.vector_norm(u[..., :2], dim=-1)
+    terms = {
+        "obstacle": costs.obstacle_penalty(pos, prob.obstacles, prob.obstacle_mask) > 0,
+        "ground": (pos[..., 2] < w.ground_altitude).any(-1),
+        "velocity": (vel.abs() > costs.effective_vmax(prob, w)).any(-1).any(-1),
+        "tilt": (lat > w.tan_max_tilt * u[..., 2]).any(-1),
+        "thrust_norm": (torch.linalg.vector_norm(u, dim=-1) > w.max_thrust_norm).any(-1),
+    }
+    return {name: int(active.sum()) for name, active in terms.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["gauss_newton", "full_curvature"])
+def test_cuda_kernel_two_steps_per_lane_every_hinge(cuda_device, stage):
+    """N=40: each lane holds two horizon steps, so every warp scan carries
+    its first slot's total into the second. One Newton round at CG-2 from
+    the cold start with every hinge active in some scenario (a per-scenario
+    v_cap of 1.5 m/s wakes the velocity envelope): thrusts, positions and
+    velocities within 2e-3 of the plain loop, the cost within 1e-5 of the
+    cost of the kernel's own thrusts."""
+    from dart_planner_tpu_torch.ops import costs
+
+    config = T.SE3MPCConfig(
+        prediction_horizon=40, max_iterations=1, cg_iterations=2, tail_iterations=0,
+        gn_warmup_iterations=1 if stage == "gauss_newton" else 0,
+    )
+    prob = _gpu_problem(config, 256, 40, cuda_device, n_obs=4)
+    prob = prob._replace(v_cap=torch.full((256,), 1.5, device=cuda_device))
+    u0 = T.initialize_thrusts(config, prob)
+    act = _hinge_activity(config, prob, u0)
+    assert all(n > 0 for n in act.values()), act
+    _, k, p = _kernel_vs_plain(config, prob)
+    for i in (0, 2, 3):
+        torch.testing.assert_close(k[i], p[i], rtol=0, atol=2e-3)
+    gvec = torch.tensor([0.0, 0.0, -config.gravity], device=cuda_device)
+    c_own = costs.condensed_cost(
+        k[0].to(cuda_device), prob, config.weights, config.dt, config.mass, gvec
+    ).cpu()
+    torch.testing.assert_close(k[4], c_own, rtol=1e-5, atol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_convex_parity(cuda_device):
     """The JAX package's convex regime (N=8, 4 rounds at CG-10, as in
@@ -283,11 +322,13 @@ def test_cuda_kernel_convex_parity(cuda_device):
     scenarios sit on the optimum's plateau, where the best candidate can tie
     the current iterate in float32 cost. On a tie the two line-search rules
     part: the kernel keeps the iterate, the plain loop's argmin takes the
-    candidate. Measured on an H100 at this seed: scenario 11 in round 4,
-    where the plain loop's candidate is 2e-4 lower in float64 (0.05 ulp of
-    the float32 cost) and 6.9e-3 N from the kept iterate. The plain loop on
-    the GPU and on the CPU part there by 2.1e-2 N. Such scenarios are held
-    to 0.05."""
+    candidate. Measured on an H100 at this seed: scenario 11 in round 4
+    and nowhere else. The kernel ends 2.1e-2 N from the plain loop there,
+    its float32 cost one ulp below the plain loop's (33132.754 against
+    33132.758); rounds 1-3 agree to 8.8e-4 N. The kernel that applied its
+    maps as dense products parted at the same place by 6.9e-3 N, and the
+    plain loop on the GPU and on the CPU part there by 2.1e-2 N. Such
+    scenarios are held to 0.05."""
     rng = np.random.default_rng(0)
     p0, v0, goal, _ = _arrays(rng, 16)
     prob = T.make_problem(p0, v0, goal, config=CONVEX, device=cuda_device)

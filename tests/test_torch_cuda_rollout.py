@@ -119,7 +119,7 @@ def test_fused_closed_loop_on_cpu_launches_no_kernel():
                                  tail_iterations=0),
         num_replans=2, substeps_per_plan=10,
     )
-    st = DroneState.zeros((2,)).replace(position=torch.tensor([[0.0, 0, 3], [1, 0, 3]]))
+    st = DroneState.zeros((2,), device="cpu").replace(position=torch.tensor([[0.0, 0, 3], [1, 0, 3]]))
     goals = torch.tensor([[3.0, 0, 3], [3.0, 1, 4]])
     before = (cuda_mpc.LAUNCHES, cuda_rollout.LAUNCHES)
     res = closed_loop.simulate_episode(config, None, st, goals, method="fused")

@@ -39,7 +39,7 @@ def _t(x):
 
 def _gvec():
     g = jframes.gravity_vector(jframes.WorldFrame.ENU, 9.81).astype(jnp.float32)
-    return g, tframes.gravity_vector()
+    return g, tframes.gravity_vector(device="cpu")
 
 
 def _thrusts(rng, batch=(4,)):
@@ -97,7 +97,7 @@ def _problems(rng, batch=4, v_cap=False, per_step_goal=False):
     jcfg = J.SE3MPCConfig(prediction_horizon=N, max_velocity=4.0)
     tcfg = T.SE3MPCConfig(**jcfg._asdict())
     pj = J.make_problem(p0, v0, goal, obstacles=obs, config=jcfg)
-    pt = T.make_problem(p0, v0, goal, obstacles=obs, config=tcfg)
+    pt = T.make_problem(p0, v0, goal, obstacles=obs, config=tcfg, device="cpu")
     if v_cap:
         cap = rng.uniform(1.0, 5.0, (batch,)).astype(np.float32)
         pj = pj._replace(v_cap=jnp.asarray(cap))

@@ -49,7 +49,7 @@ def _both(config, arrays, use_obstacles=True):
     obs = obs if use_obstacles else None
     jcfg = J.SE3MPCConfig(**config._asdict())
     pj = J.make_problem(p0, v0, goal, obstacles=obs, config=jcfg)
-    pt = T.make_problem(p0, v0, goal, obstacles=obs, config=config)
+    pt = T.make_problem(p0, v0, goal, obstacles=obs, config=config, device="cpu")
     return jcfg, pj, pt
 
 
@@ -66,7 +66,8 @@ def test_make_problem_matches_jax(clamp):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
     assert pt.obstacles.shape == (5, config.max_obstacles, 4)
     with pytest.raises(ValueError):
-        T.make_problem(p0, v0, goal, obstacles=np.zeros((5, 9, 4), np.float32), config=config)
+        T.make_problem(p0, v0, goal, obstacles=np.zeros((5, 9, 4), np.float32), config=config,
+                       device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["qp", "hover"])
@@ -147,11 +148,11 @@ def test_planner_verify_recipe_matches_jax():
     toward (5, 0, 3), three warm-started replans on both packages."""
     cfg = T.SE3MPCConfig(prediction_horizon=12)
     jp = J.SE3MPCPlanner(J.SE3MPCConfig(**cfg._asdict()))
-    tp = T.SE3MPCPlanner(cfg)
+    tp = T.SE3MPCPlanner(cfg, device="cpu")
     for p in (jp, tp):
         p.add_obstacle(center=(2.5, 0.0, 2.0), radius=0.5)
     js = JDroneState.create(timestamp=0.0, position=(0.0, 0.0, 2.0))
-    ts = DroneState.create(timestamp=0.0, position=(0.0, 0.0, 2.0))
+    ts = DroneState.create(timestamp=0.0, position=(0.0, 0.0, 2.0), device="cpu")
     goal = (5.0, 0.0, 3.0)
     for _ in range(3):
         jt = jp.plan_trajectory(js, goal)
@@ -168,7 +169,7 @@ def test_planner_verify_recipe_matches_jax():
 
 def test_emergency_trajectory_and_plan_validity():
     cfg = T.SE3MPCConfig(prediction_horizon=6)
-    state = DroneState.create(timestamp=1.0, position=(0.5, -1.0, 2.0))
+    state = DroneState.create(timestamp=1.0, position=(0.5, -1.0, 2.0), device="cpu")
     em = T.emergency_trajectory(cfg, state)
     jem = J.emergency_trajectory(
         J.SE3MPCConfig(prediction_horizon=6),
@@ -195,7 +196,7 @@ def test_restart_never_regresses():
     base = CFG._replace(max_iterations=2, gn_warmup_iterations=2,
                         tail_iterations=2, tail_capacity=0.25)
     p0, v0, goal, obs = _arrays(7, B, n_obs=4)
-    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=base)
+    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=base, device="cpu")
     u0 = T.initialize_thrusts(base, prob)
     r2 = T.solve(base, prob, u0)
     cfg_r = base._replace(restart_iterations=8, restart_capacity=0.5)
@@ -219,9 +220,10 @@ def test_tail_refine_shared_fields_with_coincident_batch_dims():
         p0 = rng.normal(0, 2, (B, 3)).astype(np.float32) + np.float32([0, 0, 5])
         v0 = rng.normal(0, 1, (B, 3)).astype(np.float32)
         goal = np.asarray([4.0, -2.0, 6.0], np.float32)
-        shared = T.make_problem(p0, v0, goal, obstacles=obs, config=base)
+        shared = T.make_problem(p0, v0, goal, obstacles=obs, config=base, device="cpu")
         bcast = T.make_problem(p0, v0, np.tile(goal, (B, 1)),
-                               obstacles=np.tile(obs[None], (B, 1, 1)), config=base)
+                               obstacles=np.tile(obs[None], (B, 1, 1)), config=base,
+                               device="cpu")
         u0 = T.initialize_thrusts(base, shared)
         rs = T.solve(base, shared, u0)
         rb = T.solve(base, bcast, u0)
@@ -230,9 +232,9 @@ def test_tail_refine_shared_fields_with_coincident_batch_dims():
 
 
 def test_planner_registry_and_obstacle_capacity():
-    planner = PlannerFactory.create("se3_mpc")
+    planner = PlannerFactory.create("se3_mpc", device="cpu")
     assert isinstance(planner, T.SE3MPCPlanner)
-    small = T.SE3MPCPlanner({"prediction_horizon": 8, "max_obstacles": 2})
+    small = T.SE3MPCPlanner({"prediction_horizon": 8, "max_obstacles": 2}, device="cpu")
     for i in range(3):
         small.add_obstacle((float(i), 0.0, 2.0), 0.5)
     assert [float(c[0]) for c, _ in small.obstacles] == [1.0, 2.0]
@@ -241,7 +243,7 @@ def test_planner_registry_and_obstacle_capacity():
 
 
 def test_fast_path_replan_on_cpu():
-    fp = PlannerFastPath(T.SE3MPCConfig(prediction_horizon=8, max_iterations=4))
+    fp = PlannerFastPath(T.SE3MPCConfig(prediction_horizon=8, max_iterations=4), device="cpu")
     sp = fp.replan([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [4.0, 2.0, 4.0])
     assert sp.shape == (13,) and sp.dtype == np.float32
     assert np.all(np.isfinite(sp)) and sp[12] > 0.0

@@ -46,7 +46,7 @@ def _states(pos, vel=None):
     z = jnp.zeros((B, 3), jnp.float32)
     js = JDroneState.create(timestamp=jnp.zeros(B, jnp.float32), position=jnp.asarray(pos),
                             velocity=jnp.asarray(vel), attitude=z, angular_velocity=z)
-    ts = DroneState.zeros((B,)).replace(position=torch.tensor(pos),
+    ts = DroneState.zeros((B,), device="cpu").replace(position=torch.tensor(pos),
                                         velocity=torch.tensor(vel))
     return js, ts
 
@@ -120,11 +120,11 @@ def test_rigid_body_step_matches_jax():
 def test_sample_wind_shape_and_stream():
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)
-    w1 = TP.sample_wind(g1, (5,), 1.0, 0.5)
-    w2 = TP.sample_wind(g2, (5,), 1.0, 0.5)
+    w1 = TP.sample_wind(g1, (5,), 1.0, 0.5, device="cpu")
+    w2 = TP.sample_wind(g2, (5,), 1.0, 0.5, device="cpu")
     assert w1.shape == (5, 3) and w1.dtype == torch.float32
     assert torch.equal(w1, w2)
-    assert torch.equal(TP.sample_wind(g1, (5,), 0.0, 0.0), torch.zeros(5, 3))
+    assert torch.equal(TP.sample_wind(g1, (5,), 0.0, 0.0, device="cpu"), torch.zeros(5, 3))
 
 
 # ---- tick-block helpers ------------------------------------------------------
@@ -209,7 +209,7 @@ def test_packing_helpers_match_jax():
         failsafe_count=jnp.asarray(count), last_valid_thrust=jnp.asarray(lv))
     trb = TP.RigidBodyState(position=torch.tensor(pos), velocity=torch.tensor(vel),
                             rotation=torch.tensor(R), angular_velocity=torch.tensor(omega))
-    tct = TG.ControllerState.zeros(TG.GeometricConfig(), (B,)).replace(
+    tct = TG.ControllerState.zeros(TG.GeometricConfig(), (B,), device="cpu").replace(
         integral_vel_error=torch.tensor(integral), last_torque_saturated=torch.tensor(lt),
         failsafe_count=torch.tensor(count), last_valid_thrust=torch.tensor(lv))
     S_j = _np(pallas_rollout.pack_state(jrb, jct))

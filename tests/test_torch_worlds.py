@@ -72,7 +72,7 @@ def test_update_with_scan_matches_jax():
     """Two scans from the same JAX rays: every voxel's log-odds within 1e-6,
     and the clip at the probability bounds."""
     tobs, tmask = _jax_worlds(1, 2)
-    jm, tm = JM.create_map(MC), TM.create_map(MC)
+    jm, tm = JM.create_map(MC), TM.create_map(MC, device="cpu")
     for pos in (START, np.float32([3.0, 1.5, 3.5])):
         jo, jd, jh = JM.simulate_lidar_scan(MC, jnp.asarray(pos), tobs[0], tmask[0])
         for _ in range(3):
@@ -88,7 +88,7 @@ def test_update_with_scan_matches_jax():
 def _mapped(seed=3):
     """A map holding one episode's scans, in both packages."""
     tobs, tmask = _jax_worlds(1, seed)
-    jm, tm = JM.create_map(MC), TM.create_map(MC)
+    jm, tm = JM.create_map(MC), TM.create_map(MC, device="cpu")
     for pos in (START, 0.5 * (START + GOAL), GOAL):
         jo, jd, jh = JM.simulate_lidar_scan(MC, jnp.asarray(pos), tobs[0], tmask[0])
         jm = JM.update_with_scan(MC, jm, jo, jd, jh)
@@ -217,7 +217,7 @@ def test_monte_carlo_with_worlds_speed_cap():
 
 
 def test_mapper_facade():
-    gm = TM.GeometricMapper(config=MC)
+    gm = TM.GeometricMapper(config=MC, device="cpu")
     gm.add_obstacle((2.0, 0.0, 3.0), 0.6)
     assert gm.is_collision((2.0, 0.0, 3.0)) and not gm.is_collision((-5.0, 0.0, 3.0))
     assert not gm.is_trajectory_safe([[0.0, 0.0, 3.0], [2.0, 0.0, 3.0]])
