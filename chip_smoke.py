@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --baseline build/dense/mpc_solve.cu
+    python3 chip_smoke.py --baseline build/baseline/tick_block.cu
 
 Builds the hand-written CUDA kernels from ``dart_planner_tpu_torch/csrc/``
 with nvcc (one nvcc per source, started together) and holds each against
@@ -24,12 +24,15 @@ obstacle worlds (``sim.worlds.monte_carlo_with_worlds``, 2048 episodes of 60
 replans, phase 9), and the two-phase ``planning.se3_mpc.solve`` with the
 planner facade and the fast path (phases 4-6). Phases 7 and 10 time the
 kernels against their plain versions with CUDA events, and the
-Monte-Carlo's episodes/s on the host clock. With ``--baseline SRC``,
-phase 7 also builds SRC, an earlier version of kernel B1 that applies
-its maps as dense N x N products out of shared memory (the same C
-interface, the constant block of :func:`dense_constants`), and times it
-turn by turn against the scan kernel (baseline, scan, scan, baseline) at
-each of phase 7's kernel shapes.
+Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
+clock under load and prints kernel B2's latency floor beside its bound (the
+floor's cycles a tick are reckoned from assumed instruction latencies, so it
+stays out of the per-kernel JSON record).
+With ``--baseline SRC``, phase 10 also builds SRC, an earlier version of
+kernel B2's ``csrc/tick_block.cu`` with the same C interface, into its own
+library and times it turn by turn against the package's kernel (old, new,
+new, old; with the wrapper and alone), and prints the largest |new - old|
+over the state and accumulator rows.
 
 Each phase prints one line. The line before the last is the per-kernel JSON
 record; the last line is ``{"ok": true, "device": {...}}``, printed only
@@ -40,7 +43,6 @@ no CUDA device is visible. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import pathlib
@@ -68,6 +70,17 @@ SQRT_DIV_OPS = 8
 # csrc/tick_block.cu (the controller, one substep of the plant, the metrics
 # against K spheres): ~600 at K=3
 B2_OPS_PER_TICK = 600
+# the cycles of the longest dependent path through one tick of kernel B2
+# with one substep, reckoned from csrc/tick_block.cu's code: 3 precise
+# square roots (f_norm, n1, theta) at 33 cycles each (MUFU.RSQ and three
+# dependent refinements), 4 precise divisions (inv_f, 1 / n1, the angular
+# acceleration, sin(theta) / theta) at 38 (MUFU.RCP and five dependent
+# FMAs), one sincosf at 65 (range reduction and polynomial) and 51
+# dependent fp32 adds, multiplies, FMAs, min/max, compares and selects at 4
+# cycles each; and what each further substep adds (the angular
+# acceleration, theta, sincosf, both Rodrigues coefficients, E and R E)
+B2_CHAIN_CYCLES = 3 * 33 + 4 * 38 + 65 + 51 * 4
+B2_SUBSTEP_CYCLES = 33 + 2 * 38 + 65 + 16 * 4
 
 
 class SmokeFailure(Exception):
@@ -192,69 +205,44 @@ def b2_bound(B: int, T: int, substeps: int, *tensors) -> tuple[float, str]:
     return bound_ms(n_bytes, B * T * substeps * B2_OPS_PER_TICK)
 
 
-def dense_constants(config):
-    """The constant block of the dense-map version of kernel B1 (for a
-    ``--baseline`` build): H, S_p/m, S_v/m as M[j * LD + k] = M[k, j],
-    S_p/m, S_v/m as M[k * LD + i] = M[k, i], then t, S_p 1, S_v 1, diag H."""
-    import numpy as np
+def b2_floor_ms(T: int, substeps: int, sm_mhz: float) -> float:
+    """Latency floor of one launch of kernel B2: T ticks of one tick's
+    dependent chain at the SM clock ``sm_mhz``."""
+    cycles = B2_CHAIN_CYCLES + (substeps - 1) * B2_SUBSTEP_CYCLES
+    return T * cycles / (sm_mhz * 1e3)
+
+
+def sm_clock_mhz(fn, seconds: float = 1.5) -> float:
+    """The SM clock in MHz while ``fn()`` runs back to back for ``seconds``:
+    the median of nvidia-smi's readings every 50 ms over that window."""
     import torch
 
-    from dart_planner_tpu_torch.ops import costs, cuda_mpc, dynamics
-
-    N = config.prediction_horizon
-    LD = cuda_mpc.lane_stride(N)
-    f32 = torch.float32
-    S_p, S_v, t = dynamics.rollout_matrices(N, float(config.dt))
-    Sp = torch.as_tensor(S_p, dtype=f32) / config.mass
-    Sv = torch.as_tensor(S_v, dtype=f32) / config.mass
-    H64 = costs.quadratic_hessian(N, config.dt, config.mass, config.gravity, config.weights)
-    H = torch.as_tensor(H64, dtype=f32)
-
-    def rows(M):
-        out = torch.zeros(N, LD, dtype=f32)
-        out[:, :N] = M
-        return out.reshape(-1)
-
-    def vec(v):
-        out = torch.zeros(LD, dtype=f32)
-        out[:N] = torch.as_tensor(np.array(v), dtype=f32)
-        return out
-
-    return torch.cat([rows(H.T), rows(Sp.T), rows(Sv.T), rows(Sp), rows(Sv), vec(t),
-                      vec(S_p.sum(1)), vec(S_v.sum(1)), vec(np.diagonal(H64))])
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=60)[0]
+    readings = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+    check(len(readings) > 0, "nvidia-smi gave no SM clock reading")
+    return statistics.median(readings)
 
 
 def load_baseline(source: pathlib.Path):
-    """Build ``source`` (the dense-map version of kernel B1, with the same C
-    interface) into its own library under build/ and bind its
-    ``mpc_solve_launch``."""
-    from dart_planner_tpu_torch.ops import _build, cuda_mpc
+    """Build ``source`` (an earlier version of csrc/tick_block.cu with the
+    same C interface) into its own library under build/ and bind it."""
+    from dart_planner_tpu_torch.ops import _build, cuda_rollout
 
-    out = _build.BUILD_DIR.parent / "baseline" / "libmpc_dense.so"
+    out = _build.BUILD_DIR.parent / "baseline" / "libtick_block_baseline.so"
     _build.compile_library([source], out)
-    return cuda_mpc.bind(ctypes.CDLL(str(out)))
-
-
-@contextlib.contextmanager
-def using_baseline(lib):
-    """Route ``cuda_mpc.solve_thrusts_fused`` through the dense-map build of
-    kernel B1 and its constant block for the duration."""
-    from dart_planner_tpu_torch.ops import cuda_mpc
-
-    saved = cuda_mpc._library, cuda_mpc._constants
-    cache = {}
-
-    def cached(config, device):
-        if (config, device) not in cache:
-            cache[config, device] = dense_constants(config).to(device)
-        return cache[config, device]
-
-    cuda_mpc._library = lambda: lib
-    cuda_mpc._constants = cached
-    try:
-        yield
-    finally:
-        cuda_mpc._library, cuda_mpc._constants = saved
+    return cuda_rollout.bind(ctypes.CDLL(str(out)))
 
 
 def random_tick_inputs(ctrl_cfg, B: int, T: int, seed: int, dev) -> tuple:
@@ -576,11 +564,46 @@ def kernel_device_ms(fn, kernel: str, reps: int = 5) -> float:
     return us / reps / 1e3
 
 
-def closed_loop_times(dev, card: str) -> dict:
+def tick_block_turns(args, baseline) -> str:
+    """Kernel B2 against an earlier build of it (``baseline``, bound by
+    ``cuda_rollout.bind``) on the same inputs, turn by turn: old, new, new,
+    old, with the wrapper (CUDA events) and alone (torch.profiler), and the
+    largest |new - old| over the state and accumulator rows."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_rollout
+
+    def new():
+        return cuda_rollout.run_tick_block(*args)
+
+    def old():
+        return cuda_rollout.launch_tick_block(baseline, *args)
+
+    wrapped = [cuda_time_ms(fn) for fn in (old, new, new, old)]
+    alone = [kernel_device_ms(fn, "tick_block_kernel") for fn in (old, new, new, old)]
+    (ns, na), (os_, oa) = new(), old()
+    torch.cuda.synchronize()
+    d_state, d_acc = float((ns - os_).abs().max()), float((na - oa).abs().max())
+    n_diff = int((ns != os_).sum()) + int((na != oa).sum())
+    rows = (ns != os_).any(1).nonzero().flatten().tolist()
+
+    def turns(t):
+        return (f"{' / '.join(f'{x:.4f}' for x in t)} ms, speed-up "
+                f"{(t[0] + t[3]) / (t[1] + t[2]):.2f}x")
+
+    return (f"old / new / new / old with the wrapper {turns(wrapped)}; alone "
+            f"{turns(alone)}; max |new - old| state {d_state:.3g}, accumulators "
+            f"{d_acc:.3g}, {n_diff} of {ns.numel() + na.numel()} values differ (state "
+            f"rows {rows})")
+
+
+def closed_loop_times(dev, card: str, baseline=None) -> dict:
     """Phase 10: kernel B2 against its plain version at B=2048, T=40 (CUDA
-    events), and the Monte-Carlo's episodes/s with the kernels and with the
-    plain path (host clock after a synchronize; perception excluded, as the
-    JAX package's bench excludes it), plus one profile of the kernel run."""
+    events), its bound and latency floor (the SM clock read while it runs),
+    and the Monte-Carlo's episodes/s with the kernels and with the plain
+    path (host clock after a synchronize; perception excluded, as the JAX
+    package's bench excludes it), plus one profile of the kernel run.
+    ``baseline``: an earlier build of B2 to time turn by turn, or None."""
     import torch
 
     from dart_planner_tpu_torch.ops import cuda_rollout
@@ -593,6 +616,18 @@ def closed_loop_times(dev, card: str) -> dict:
     d_k = kernel_device_ms(lambda: cuda_rollout.run_tick_block(*args), "tick_block_kernel")
     t_p = cuda_time_ms(lambda: cuda_rollout.run_tick_block_plain(*args), reps=5)
     bnd, bound_by = b2_bound(B_MC, 40, 1, *args[5:], *cuda_rollout.run_tick_block(*args))
+    mhz = sm_clock_mhz(lambda: cuda_rollout.run_tick_block(*args))
+    floor = b2_floor_ms(40, 1, mhz)
+    print(f"[10 times] ({card}) tick block B={B_MC} T=40 median CUDA-event ms: "
+          f"kernel {t_k:.4f} (the kernel alone {d_k:.4f} by torch.profiler), plain "
+          f"{t_p:.4f}, bound {bnd:.3g} ({bound_by}; share of the kernel alone "
+          f"{bnd / d_k:.3g}), latency floor {floor:.4f} ({B2_CHAIN_CYCLES} cycles a "
+          f"tick reckoned from assumed instruction latencies, not read) at the SM clock "
+          f"of {mhz:.0f} MHz under load (share of the kernel alone {floor / d_k:.3g})",
+          flush=True)
+    if baseline is not None:
+        print(f"[10 baseline] ({card}) tick block B={B_MC} T=40: "
+              f"{tick_block_turns(args, baseline)}", flush=True)
 
     # the fleet, worlds and perception once, as set-up
     wc = WorldConfig()
@@ -637,10 +672,6 @@ def closed_loop_times(dev, card: str) -> dict:
         t_torch, res_torch = host_seconds("torch", n_torch)
     qt = summarize(res_torch)
     prof = device_profile(lambda: run_mc("auto"))
-    print(f"[10 times] ({card}) tick block B={B_MC} T=40 median CUDA-event ms: "
-          f"kernel {t_k:.4f} (the kernel alone {d_k:.4f} by torch.profiler), plain "
-          f"{t_p:.4f}, bound {bnd:.3g} ({bound_by}; share of the kernel alone "
-          f"{bnd / d_k:.3g})", flush=True)
     print(f"[10 times] ({card}) Monte-Carlo B={B_MC}, perception excluded, host "
           f"clock: kernels {B_MC / t_mc:.1f} episodes/s (median of 3, "
           f"{t_mc:.3f} s a run; success {q['success']:.4f}, crash {q['crash']:.4f}); "
@@ -652,7 +683,7 @@ def closed_loop_times(dev, card: str) -> dict:
           f"s, device busy {prof['busy']:.3f} s, device idle share "
           f"{prof['idle']:.3f}; top device ops (ms, share of busy) {prof['top']}", flush=True)
     return {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "sm_mhz": mhz}
 
 
 def _take(states, n: int):
@@ -662,13 +693,12 @@ def _take(states, n: int):
     })
 
 
-def solver_phases(dev, card: str, first, baseline=None) -> dict:
+def solver_phases(dev, card: str, first) -> dict:
     """Phases 3a-7: kernel B1 against its plain loop at the solve bench's
     shapes, the two-phase solve (the first slice's main path) with the
     launch count set to 0 just before and read just after, the planner
     facade, the fast path, and B1's times at the main paths' shapes
-    (``first``: the closed loop's first-replan solve; ``baseline``: the
-    library of the dense-map build of B1 to time beside it, or None)."""
+    (``first``: the closed loop's first-replan solve)."""
     import math
 
     import numpy as np
@@ -874,7 +904,7 @@ def solver_phases(dev, card: str, first, baseline=None) -> dict:
           f"{lat['planner_to_actuator_p95_ms']:.3f} ms (host clock; {card})",
           flush=True)
 
-    # -- 7. times: kernel vs plain (and vs the dense-map kernel, turn by turn)
+    # -- 7. times: kernel vs plain
     one = bench_problem(se3_mpc, base, 1, 1, dev)
     u1 = se3_mpc.initialize_thrusts(cfg_p1, one)
     cfg_k, prob_k, u_k = first
@@ -901,28 +931,14 @@ def solver_phases(dev, card: str, first, baseline=None) -> dict:
     )
     times = {}
     for key, label, run_k, run_p, reps_p, (bnd, bound_by) in shapes:
-        turns = ""
-        if baseline is None:
-            t_k = cuda_time_ms(run_k)
-        else:
-            with using_baseline(baseline):
-                old_a = cuda_time_ms(run_k)
-            new_a, new_b = cuda_time_ms(run_k), cuda_time_ms(run_k)
-            with using_baseline(baseline):
-                old_b = cuda_time_ms(run_k)
-                d_old = kernel_device_ms(run_k, "mpc_solve_kernel")
-            t_k = (new_a + new_b) / 2
-            turns = (f"; dense / scan / scan / dense: {old_a:.4f} / {new_a:.4f} / "
-                     f"{new_b:.4f} / {old_b:.4f} ms, speed-up "
-                     f"{(old_a + old_b) / (new_a + new_b):.2f}x, dense alone "
-                     f"{d_old:.4f} ms")
+        t_k = cuda_time_ms(run_k)
         d_k = kernel_device_ms(run_k, "mpc_solve_kernel")
         t_p = cuda_time_ms(run_p, reps=reps_p)
         times[key] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
                       "bound_by": bound_by}
         print(f"[7 times] ({card}) {label}, median CUDA-event ms: kernel {t_k:.4f} "
               f"(the kernel alone {d_k:.4f} by torch.profiler), plain {t_p:.4f}, bound "
-              f"{bnd:.3g} ({bound_by}; share of the kernel alone {bnd / d_k:.3g}){turns}",
+              f"{bnd:.3g} ({bound_by}; share of the kernel alone {bnd / d_k:.3g})",
               flush=True)
 
     return {"launches": launches, "max_abs_err": max([err_u] + err_rounds),
@@ -935,7 +951,11 @@ def run(baseline_source=None) -> dict:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: no GPU to test")
 
-    from dart_planner_tpu_torch.ops import _build, cuda_mpc, cuda_rollout
+    try:
+        from dart_planner_tpu_torch.ops import _build, cuda_mpc, cuda_rollout
+    except ImportError as e:
+        raise SmokeFailure(f"the port does not import ({e}): run this script from the "
+                           "root of a checkout of the repository") from e
 
     dev = torch.device("cuda", 0)
     # the plain paths' reference arithmetic is exact fp32: no TF32
@@ -974,7 +994,7 @@ def run(baseline_source=None) -> dict:
     if baseline_source is not None:
         t0 = time.perf_counter()
         baseline = load_baseline(pathlib.Path(baseline_source))
-        print(f"[2 build] dense {baseline_source} in {time.perf_counter() - t0:.1f} s",
+        print(f"[2 build] baseline {baseline_source} in {time.perf_counter() - t0:.1f} s",
               flush=True)
 
     # -- 8. kernel B2 vs plain ----------------------------------------------
@@ -986,9 +1006,9 @@ def run(baseline_source=None) -> dict:
     # -- 3f. kernel B1 in the small convex regime, round by round ----------
     convex_tie_phase(dev)
     # -- 3-7. kernel B1 at the solve bench, the first slice's main path -----
-    b1 = solver_phases(dev, card, mc["first"], baseline)
+    b1 = solver_phases(dev, card, mc["first"])
     # -- 10. times of this slice ----------------------------------------------
-    t_b2 = closed_loop_times(dev, card)
+    t_b2 = closed_loop_times(dev, card, baseline)
 
     replans = mc_config().num_replans
     return {
@@ -1026,6 +1046,7 @@ def run(baseline_source=None) -> dict:
                 "plain_ms": t_b2["plain_ms"],
                 "bound_ms": t_b2["bound_ms"],
                 "bound_by": t_b2["bound_by"],
+                "sm_mhz": t_b2["sm_mhz"],
                 "library_ms": None,
             },
         ]
@@ -1034,8 +1055,8 @@ def run(baseline_source=None) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--baseline", help="the dense-map version of csrc/mpc_solve.cu, "
-                        "to time turn by turn beside the scan kernel (phase 7)")
+    parser.add_argument("--baseline", help="an earlier csrc/tick_block.cu with the same "
+                        "C interface, to time turn by turn beside kernel B2 (phase 10)")
     args = parser.parse_args()
     try:
         record = run(args.baseline)

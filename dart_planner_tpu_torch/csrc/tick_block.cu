@@ -16,38 +16,76 @@
 //     error, minimum altitude, minimum surface clearance to the true spheres
 //     (an inactive sphere carries r = -1e30, so its clearance is 1e30).
 //
-// Layout: one thread per episode; the whole state (pos, vel, omega, R,
-// integral, torque-saturation flags, failsafe count, last valid thrust) and
-// the four running metrics stay in registers for all T ticks. Row r of an
-// input is read at rows[r * B + b], so neighbouring threads read
-// neighbouring words. Ticks, substeps and spheres are runtime loops. The
-// Pallas kernel's padding of B to 128 lanes and its Python-unrolled tick
-// loop do not carry over.
+// What bounds it. Bytes and operations do not: per launch at B=2048, T=40,
+// K=3 it moves ~3.7 MB (~1.1 us of HBM time) and does ~50 MFLOP. Each
+// episode's T ticks are one dependent chain, and one thread runs it, so the
+// kernel takes at least T times the latency of one tick's chain. Reckoned
+// from the code, one tick with one substep holds 7 precise square roots
+// (pe_mag, ve_mag, f_norm, the integral's norm, n1, np_, theta), 11 precise
+// divisions (the integral's scale, inv_f, inv_n1, inv_np, three for the
+// thrust acceleration, three for the angular acceleration, sin(theta) /
+// theta and (1 - cos(theta)) / t2) and one sincosf. The longest path from
+// a tick's state to the next one's runs f -> f_norm -> b3 -> the desired
+// frame -> e_R -> torque -> omega -> theta -> R: 3 square roots (f_norm,
+// n1, theta; np_ runs beside n1), 4 divisions (inv_f, inv_n1, the angular
+// acceleration, sin(theta) / theta), the sincosf and ~51 dependent fp32
+// operations, ~520 cycles with the instruction latencies assumed in
+// `chip_smoke.py::B2_CHAIN_CYCLES` (not read from the SASS): at T=40 and
+// 1.98 GHz a floor of ~10.5 us, whatever the batch. A tick takes several times that on the card
+// (PERF.md): a warp issues in program order, and with one chain warp per
+// scheduler nothing else issues while an instruction waits on the one
+// before, so every stall in a tick's instruction stream is paid, whether or
+// not the stalled value is on the chain. The design takes every such stall
+// it can off the stream:
+//   1. Setpoints one tick ahead: tick t loads tick t+1's nine setpoint
+//      values into registers and uses the ones loaded a tick earlier, so a
+//      load has a whole tick to arrive from L2.
+//   2. Metrics off the chain: the chain keeps only the state. After each
+//      tick it stores pos to shared memory (3 T floats an episode); after
+//      the tick loop every warp of the block computes the four metrics
+//      over the (tick, episode) pairs in parallel, each thread loading its
+//      episode's goal and spheres once. The minima are exact in any order;
+//      the tracking error is summed in tick order, as the chain summed it.
+//   3. Exact hoists: wind / mass is divided once, not every substep (the
+//      same operation on the same operands); one sincosf in place of sinf
+//      and cosf; goal leaves the chain's registers.
+//   4. Blocks of 32 episodes: one chain warp and kHelperWarps warps that
+//      write the zero rows during the chain and share the metrics pass. At
+//      B=2048 that is 64 blocks on 64 SMs, one chain warp each.
+//   5. Fewer branches in a tick, so that the scheduler can overlap more of
+//      it: the desired frame's two normalizations divide unconditionally
+//      and select (the two fallbacks to e1 are rare and keep their values),
+//      and the substep loop is a compile-time loop of one for the
+//      closed loop's single substep (a second instantiation takes more).
+// Nothing else of the arithmetic moved: every state update is written as
+// before, in the same order.
+//
+// Layout: row r of an input is read at rows[r * B + b], so the 32 lanes of
+// a warp read 32 neighbouring words. The ragged edge (B not a multiple of
+// 32) runs the chain on the last episode's inputs and writes nothing. Shared
+// memory is 4 * 32 * (3 T + 3 kWarps) bytes: the positions after each tick
+// and each warp's partial minima. Above 48 KB the launcher raises the
+// kernel's limit, and returns the error when the card cannot give it. The
+// wrapper repeats the count (cuda_rollout.py::shared_bytes) so that the
+// closed loop can refuse a T before any launch.
 //
 // Precision: exact IEEE fp32 throughout (no fast math, precise division,
-// square root, sinf and cosf); reduced-precision rotation chains broke the
+// square root and sincosf); reduced-precision rotation chains broke the
 // Monte-Carlo on the TPU (docs/kernel.md:172-208). nvcc contracts a*b+c into
 // FMAs, so the kernel and its plain PyTorch version part by an ulp here and
 // there, and an exact compare at a clip limit (thrust saturation, torque
 // saturation, the failsafe test) can flip.
-//
-// What bounds it (reckoned from the code, B=2048, T=40, K=3): per episode
-// and launch it reads the state (128 B), the three setpoint arrays
-// (3 * 3T * 4 = 1440 B), goal and wind (32 B) and the spheres (16K B), and
-// writes 160 B: ~1.8 KB, ~3.7 MB per launch, ~1 us of HBM time. It does a
-// few hundred flops per tick, ~25 kFLOP per episode per launch, ~50 MFLOP
-// per launch. Neither bounds it: 2048 threads are 64 warps on 132 SMs, each
-// running a chain of 40 dependent ticks, so it is bound by the latency of
-// that chain at low occupancy. Expect tens of microseconds per launch. In
-// the Monte-Carlo loop the per-replan host glue around the solve kernel
-// sets the pace, not this kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 64;  // episodes per block
+constexpr int kEpisodes = 32;  // episodes per block: one lane each of the chain warp
+constexpr int kHelperWarps = 3;
+constexpr int kWarps = 1 + kHelperWarps;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kDefaultSharedBytes = 48 * 1024;
 
 }  // namespace
 
@@ -86,40 +124,49 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    tick_block_kernel(const TickParams P, const float* __restrict__ S,
-                      const float* __restrict__ spp, const float* __restrict__ spv,
-                      const float* __restrict__ spa, const float* __restrict__ gw,
-                      const float* __restrict__ obs, float* __restrict__ out,
-                      float* __restrict__ acc_out) {
+// The chain of one episode (lane `lane` of warp 0): T ticks of controller and
+// plant on the state in registers. Stores pos after tick t at
+// pos_s[(3 t + d) * kEpisodes + lane] and writes the state rows if b < B.
+// kOneSubstep: P.substeps is 1, known at compile time.
+template <bool kOneSubstep>
+__device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, int lane,
+                                          const float* __restrict__ S,
+                                          const float* __restrict__ spp,
+                                          const float* __restrict__ spv,
+                                          const float* __restrict__ spa,
+                                          const float* __restrict__ gw, float* pos_s,
+                                          float* __restrict__ out) {
   const int B = P.B;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  float pos[3], vel[3], omega[3], R[3][3], integral[3], lt_sat[3], goal[3], wind[3];
+  float pos[3], vel[3], omega[3], R[3][3], integral[3], lt_sat[3], wind_m[3];
   for (int d = 0; d < 3; ++d) {
-    pos[d] = S[(0 + d) * B + b];
-    vel[d] = S[(3 + d) * B + b];
-    omega[d] = S[(6 + d) * B + b];
-    integral[d] = S[(18 + d) * B + b];
-    lt_sat[d] = S[(21 + d) * B + b];
-    goal[d] = gw[(0 + d) * B + b];
-    wind[d] = gw[(3 + d) * B + b];
+    pos[d] = S[(0 + d) * B + bl];
+    vel[d] = S[(3 + d) * B + bl];
+    omega[d] = S[(6 + d) * B + bl];
+    integral[d] = S[(18 + d) * B + bl];
+    lt_sat[d] = S[(21 + d) * B + bl];
+    wind_m[d] = gw[(3 + d) * B + bl] / P.p_mass;
   }
   for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) R[i][j] = S[(9 + 3 * i + j) * B + b];
-  float fcount = S[24 * B + b];
-  float last_valid = S[25 * B + b];
+    for (int j = 0; j < 3; ++j) R[i][j] = S[(9 + 3 * i + j) * B + bl];
+  float fcount = S[24 * B + bl];
+  float last_valid = S[25 * B + bl];
 
-  float min_dist = 1e30f, min_alt = 1e30f, min_clear = 1e30f, track_sum = 0.f;
+  float sp_p[3], sp_v[3], sp_a[3];
+  for (int d = 0; d < 3; ++d) {
+    sp_p[d] = spp[d * B + bl];
+    sp_v[d] = spv[d * B + bl];
+    sp_a[d] = spa[d * B + bl];
+  }
 
   for (int t = 0; t < P.T; ++t) {
-    float sp_p[3], sp_v[3], sp_a[3];
+    // tick t+1's setpoints, used a tick from now (the last tick reloads its own)
+    const int tn = t + 1 < P.T ? t + 1 : t;
+    float nsp_p[3], nsp_v[3], nsp_a[3];
     for (int d = 0; d < 3; ++d) {
-      const int r = (3 * t + d) * B + b;
-      sp_p[d] = spp[r];
-      sp_v[d] = spv[r];
-      sp_a[d] = spa[r];
+      const int r = (3 * tn + d) * B + bl;
+      nsp_p[d] = spp[r];
+      nsp_v[d] = spv[r];
+      nsp_a[d] = spa[r];
     }
 
     // ---- geometric controller ----
@@ -174,21 +221,13 @@ __global__ void __launch_bounds__(kThreads)
     cross3(b3, e1, bc);
     cross3(bc, b3, b1n);
     const float n1 = sqrtf(dot3(b1n, b1n));
-    if (n1 > 1e-6f) {
-      const float inv_n1 = 1.f / n1;
-      for (int d = 0; d < 3; ++d) b1n[d] = b1n[d] * inv_n1;
-    } else {
-      for (int d = 0; d < 3; ++d) b1n[d] = e1[d];
-    }
+    const float inv_n1 = 1.f / n1;  // unused where n1 is 0
+    for (int d = 0; d < 3; ++d) b1n[d] = n1 > 1e-6f ? b1n[d] * inv_n1 : e1[d];
     const float proj[3] = {1.f - b3[0] * b3[0], -b3[0] * b3[1], -b3[0] * b3[2]};
     const float np_ = sqrtf(dot3(proj, proj));
     const bool straight = fabsf(b3[2]) >= 0.99f;
-    if (!straight && np_ > 1e-9f) {
-      const float inv_np = 1.f / np_;
-      for (int d = 0; d < 3; ++d) b1s[d] = proj[d] * inv_np;
-    } else {
-      for (int d = 0; d < 3; ++d) b1s[d] = e1[d];
-    }
+    const float inv_np = 1.f / np_;  // unused where np_ is 0
+    for (int d = 0; d < 3; ++d) b1s[d] = !straight && np_ > 1e-9f ? proj[d] * inv_np : e1[d];
     const bool singular = fabsf(b3[0]) >= P.yaw_sing;
     for (int d = 0; d < 3; ++d) b1[d] = singular ? b1s[d] : b1n[d];
     cross3(b3, b1, b2);
@@ -231,11 +270,12 @@ __global__ void __launch_bounds__(kThreads)
     float ptq[3];
     for (int d = 0; d < 3; ++d) ptq[d] = clip(tq[d], -P.p_max_torque, P.p_max_torque);
     const float h = P.h;
-    for (int s = 0; s < P.substeps; ++s) {
+    const int substeps = kOneSubstep ? 1 : P.substeps;
+    for (int s = 0; s < substeps; ++s) {
       for (int d = 0; d < 3; ++d) {
         float a = R[d][2] * thr / P.p_mass;
         if (d == 2) a = a - P.pg;
-        a = a + wind[d] / P.p_mass;
+        a = a + wind_m[d];
         if (P.use_drag) a = a - P.drag * vel[d];
         vel[d] = vel[d] + a * h;
       }
@@ -254,8 +294,10 @@ __global__ void __launch_bounds__(kThreads)
         a_c = 1.f - t2 / 6.f;
         b_c = 0.5f - t2 / 24.f;
       } else {
-        a_c = sinf(theta) / theta;
-        b_c = (1.f - cosf(theta)) / t2;
+        float s_th, c_th;
+        sincosf(theta, &s_th, &c_th);
+        a_c = s_th / theta;
+        b_c = (1.f - c_th) / t2;
       }
       const float E[3][3] = {
           {1.f + b_c * (-(wy * wy + wz * wz)), -a_c * wz + b_c * wx * wy, a_c * wy + b_c * wx * wz},
@@ -270,40 +312,102 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 3; ++j) R[i][j] = Rn[i][j];
     }
 
-    // ---- per-tick episode metrics ----
-    float dv[3], te[3];
+    // the position after tick t, for the metrics pass
+    for (int d = 0; d < 3; ++d) pos_s[(3 * t + d) * kEpisodes + lane] = pos[d];
     for (int d = 0; d < 3; ++d) {
-      dv[d] = pos[d] - goal[d];
-      te[d] = pos[d] - sp_p[d];
-    }
-    min_dist = fminf(min_dist, sqrtf(dot3(dv, dv)));
-    min_alt = fminf(min_alt, pos[2]);
-    track_sum = track_sum + dot3(te, te);
-    for (int k = 0; k < P.K; ++k) {
-      float ov[3];
-      for (int d = 0; d < 3; ++d) ov[d] = pos[d] - __ldg(obs + (4 * k + d) * B + b);
-      min_clear = fminf(min_clear, sqrtf(dot3(ov, ov)) - __ldg(obs + (4 * k + 3) * B + b));
+      sp_p[d] = nsp_p[d];
+      sp_v[d] = nsp_v[d];
+      sp_a[d] = nsp_a[d];
     }
   }
 
-  // ---- write back ----
-  for (int d = 0; d < 3; ++d) {
-    out[(0 + d) * B + b] = pos[d];
-    out[(3 + d) * B + b] = vel[d];
-    out[(6 + d) * B + b] = omega[d];
-    out[(18 + d) * B + b] = integral[d];
-    out[(21 + d) * B + b] = lt_sat[d];
+  if (b < B) {
+    for (int d = 0; d < 3; ++d) {
+      out[(0 + d) * B + b] = pos[d];
+      out[(3 + d) * B + b] = vel[d];
+      out[(6 + d) * B + b] = omega[d];
+      out[(18 + d) * B + b] = integral[d];
+      out[(21 + d) * B + b] = lt_sat[d];
+    }
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) out[(9 + 3 * i + j) * B + b] = R[i][j];
+    out[24 * B + b] = fcount;
+    out[25 * B + b] = last_valid;
   }
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) out[(9 + 3 * i + j) * B + b] = R[i][j];
-  out[24 * B + b] = fcount;
-  out[25 * B + b] = last_valid;
-  for (int r = 26; r < 32; ++r) out[r * B + b] = 0.f;
-  acc_out[0 * B + b] = min_dist;
-  acc_out[1 * B + b] = track_sum;
-  acc_out[2 * B + b] = min_alt;
-  acc_out[3 * B + b] = min_clear;
-  for (int r = 4; r < 8; ++r) acc_out[r * B + b] = 0.f;
+}
+
+template <bool kOneSubstep>
+__global__ void __launch_bounds__(kThreads)
+    tick_block_kernel(const TickParams P, const float* __restrict__ S,
+                      const float* __restrict__ spp, const float* __restrict__ spv,
+                      const float* __restrict__ spa, const float* __restrict__ gw,
+                      const float* __restrict__ obs, float* __restrict__ out,
+                      float* __restrict__ acc_out) {
+  extern __shared__ float smem[];
+  float* pos_s = smem;                            // [3 T][kEpisodes]
+  float* min_s = smem + 3 * P.T * kEpisodes;      // [3][kWarps][kEpisodes]
+
+  const int B = P.B, T = P.T;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x * kEpisodes + lane;
+  const bool live = b < B;
+  const int bl = live ? b : B - 1;  // the ragged edge computes on a real episode
+
+  if (warp == 0) {
+    run_chain<kOneSubstep>(P, b, bl, lane, S, spp, spv, spa, gw, pos_s, out);
+  } else if (live) {
+    // the zero rows, written while the chain runs
+    for (int r = 26 + (warp - 1); r < 32; r += kHelperWarps) out[r * B + b] = 0.f;
+    for (int r = 4 + (warp - 1); r < 8; r += kHelperWarps) acc_out[r * B + b] = 0.f;
+  }
+  float goal[3];  // the helpers' loads land while the chain runs
+  for (int d = 0; d < 3; ++d) goal[d] = gw[(0 + d) * B + bl];
+  __syncthreads();
+
+  // ---- metrics pass: warp w takes ticks w, w + kWarps, ... of its lane's episode
+  float min_dist = 1e30f, min_alt = 1e30f, min_clear = 1e30f;
+  if (live) {
+    for (int k = 0; k < P.K; ++k) {
+      float c[3];
+      for (int d = 0; d < 3; ++d) c[d] = obs[(4 * k + d) * B + b];
+      const float r = obs[(4 * k + 3) * B + b];
+      for (int t = warp; t < T; t += kWarps) {
+        float ov[3];
+        for (int d = 0; d < 3; ++d) ov[d] = pos_s[(3 * t + d) * kEpisodes + lane] - c[d];
+        min_clear = fminf(min_clear, sqrtf(dot3(ov, ov)) - r);
+      }
+    }
+    for (int t = warp; t < T; t += kWarps) {
+      float p[3], dv[3], te[3];
+      for (int d = 0; d < 3; ++d) {
+        p[d] = pos_s[(3 * t + d) * kEpisodes + lane];
+        dv[d] = p[d] - goal[d];
+        te[d] = p[d] - spp[(3 * t + d) * B + b];
+      }
+      min_dist = fminf(min_dist, sqrtf(dot3(dv, dv)));
+      min_alt = fminf(min_alt, p[2]);
+      // this thread alone reads (t, lane): its slot now holds the squared error
+      pos_s[(3 * t) * kEpisodes + lane] = dot3(te, te);
+    }
+  }
+  min_s[(0 * kWarps + warp) * kEpisodes + lane] = min_dist;
+  min_s[(1 * kWarps + warp) * kEpisodes + lane] = min_alt;
+  min_s[(2 * kWarps + warp) * kEpisodes + lane] = min_clear;
+  __syncthreads();
+
+  if (warp == 0 && live) {
+    float track_sum = 0.f;
+    for (int t = 0; t < T; ++t) track_sum = track_sum + pos_s[(3 * t) * kEpisodes + lane];
+    for (int w = 1; w < kWarps; ++w) {
+      min_dist = fminf(min_dist, min_s[(0 * kWarps + w) * kEpisodes + lane]);
+      min_alt = fminf(min_alt, min_s[(1 * kWarps + w) * kEpisodes + lane]);
+      min_clear = fminf(min_clear, min_s[(2 * kWarps + w) * kEpisodes + lane]);
+    }
+    acc_out[0 * B + b] = min_dist;
+    acc_out[1 * B + b] = track_sum;
+    acc_out[2 * B + b] = min_alt;
+    acc_out[3 * B + b] = min_clear;
+  }
 }
 
 }  // namespace
@@ -323,8 +427,15 @@ extern "C" int tick_block_launch(const TickParams* params, const float* S, const
   if (P.B <= 0) return 0;
   if (P.T < 1 || P.substeps < 1 || P.K < 0 || (P.K > 0 && obs == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (P.B + kThreads - 1) / kThreads;
-  tick_block_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(float) * kEpisodes * (3 * (size_t)P.T + 3 * kWarps);
+  const auto kernel = P.substeps == 1 ? tick_block_kernel<true> : tick_block_kernel<false>;
+  if (smem > kDefaultSharedBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (P.B + kEpisodes - 1) / kEpisodes;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       P, S, spp, spv, spa, gw, obs, out, acc_out);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,12 @@ device it launches the kernel or raises; only for tensors on the CPU does
 it run :func:`run_tick_block_plain`, the same tick loop in PyTorch over the
 same rows. ``LAUNCHES`` counts the kernel's launches.
 
+The kernel keeps each tick's positions in shared memory for its metrics
+pass, so T is bounded by the shared memory a block may take on the card
+(:func:`max_ticks`); above it the wrapper raises before any launch. The
+launch's parameter struct and the setpoints' interpolation weights on the
+device are built once per configuration and shape, and then reused.
+
 Scope (as in the JAX package): clamping anti-windup, setpoint yaw and yaw
 rate 0, one batch axis.
 
@@ -39,6 +45,9 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 ROWS = 32
 ACC_ROWS = 8
 INACTIVE_RADIUS = -1e30  # an inactive sphere's radius: its clearance is ~1e30
+EPISODES_PER_BLOCK = 32  # the kernel's block: one chain warp of 32 episodes
+WARPS_PER_BLOCK = 4  # the chain warp and three helpers for the metrics pass
+DEFAULT_SHARED_BYTES = 48 * 1024  # what a block may take without opting in
 
 _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _VEC3 = ("kp", "ki", "kd", "kp_att", "kd_att", "inertia", "max_tq",
@@ -61,9 +70,10 @@ class _Params(ctypes.Structure):
     ]
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = _build.load()
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``tick_block_launch`` on a loaded library
+    (the package's build, or an earlier build of ``csrc/tick_block.cu`` with
+    the same interface) and check its ``TickParams`` layout."""
     lib.tick_params_size.restype = _c_int
     lib.tick_params_size.argtypes = []
     lib.tick_error_string.restype = ctypes.c_char_p
@@ -76,6 +86,38 @@ def _library() -> ctypes.CDLL:
             f"ctypes {ctypes.sizeof(_Params)}"
         )
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return bind(_build.load())
+
+
+def shared_bytes(T: int) -> int:
+    """Dynamic shared memory of one block of the kernel at ``T`` ticks: the
+    position after each tick and each warp's three partial minima, for
+    ``EPISODES_PER_BLOCK`` episodes. ``tick_block_launch`` sizes the launch
+    itself; this count lets a caller refuse a T before any launch, and the
+    ``cuda`` tests launch at :func:`max_ticks` and expect one more to raise."""
+    return 4 * EPISODES_PER_BLOCK * (3 * T + 3 * WARPS_PER_BLOCK)
+
+
+def max_ticks(limit_bytes: int) -> int:
+    """The largest T whose block fits in ``limit_bytes`` of shared memory."""
+    return (limit_bytes // (4 * EPISODES_PER_BLOCK) - 3 * WARPS_PER_BLOCK) // 3
+
+
+@functools.lru_cache(maxsize=None)
+def shared_limit(device: torch.device) -> int:
+    """Shared memory a block may opt in to on ``device``, in bytes."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def ticks_fit(T: int, device: torch.device) -> bool:
+    """Whether a block of ``T`` ticks fits the shared memory ``device`` gives
+    one; the card is asked only above the 48 KB that every card gives."""
+    need = shared_bytes(T)
+    return need <= DEFAULT_SHARED_BYTES or need <= shared_limit(device)
 
 
 def _scalars(control_cfg, physics_cfg, control_dt: float, substeps: int) -> dict:
@@ -129,6 +171,15 @@ def _params(s: dict, B: int, T: int, substeps: int, K: int) -> _Params:
     return P
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_params(control_cfg, physics_cfg, control_dt: float, T: int, substeps: int,
+                   B: int, K: int) -> _Params:
+    """The launch's parameter struct, built once per configuration and
+    shape (the configs are NamedTuples of floats, strings and tuples)."""
+    return _params(_scalars(control_cfg, physics_cfg, control_dt, substeps),
+                   B, T, substeps, K)
+
+
 def _lerp_weights(T: int, control_dt: float, mpc_dt: float, N: int) -> np.ndarray:
     """Static (T, N) linear-interpolation matrix: plan -> per-tick setpoint."""
     W = np.zeros((T, N), np.float32)
@@ -140,6 +191,14 @@ def _lerp_weights(T: int, control_dt: float, mpc_dt: float, N: int) -> np.ndarra
         W[j, i0] = 1.0 - frac
         W[j, i0 + 1] += frac
     return W
+
+
+@functools.lru_cache(maxsize=16)
+def _lerp_tensor(T: int, control_dt: float, mpc_dt: float, N: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`_lerp_weights` on ``device``, copied there once per shape."""
+    return torch.as_tensor(_lerp_weights(T, control_dt, mpc_dt, N), dtype=dtype,
+                           device=device)
 
 
 def pack_state(rb, ctrl) -> torch.Tensor:
@@ -197,11 +256,8 @@ def setpoints_from_plan(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plan arrays (B, N, 3) -> per-tick setpoint rows (3T, B) each (row
     3t+d is axis d at tick t), by a plain float32 einsum."""
-    N = positions.shape[-2]
-    W = torch.as_tensor(
-        _lerp_weights(T, control_dt, mpc_dt, N), dtype=positions.dtype,
-        device=positions.device,
-    )
+    W = _lerp_tensor(T, control_dt, mpc_dt, positions.shape[-2], positions.dtype,
+                     positions.device)
 
     def to_rows(arr):
         sp = torch.einsum("tn,bnd->btd", W, arr)
@@ -441,15 +497,36 @@ def run_tick_block(
     On CUDA tensors it launches the kernel on the current stream (no
     synchronization) or raises; on CPU tensors it runs
     :func:`run_tick_block_plain`."""
+    args = (control_cfg, physics_cfg, control_dt, T, substeps, state_rows, sp_pos,
+            sp_vel, sp_acc, goal_wind, obstacle_rows)
+    if state_rows.device.type != "cuda":
+        return run_tick_block_plain(*args)
+    return launch_tick_block(_library(), *args)
+
+
+def launch_tick_block(
+    lib: ctypes.CDLL, control_cfg, physics_cfg, control_dt: float, T: int,
+    substeps: int, state_rows: torch.Tensor, sp_pos: torch.Tensor,
+    sp_vel: torch.Tensor, sp_acc: torch.Tensor, goal_wind: torch.Tensor,
+    obstacle_rows: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA arm of :func:`run_tick_block` on ``lib``, a library bound by
+    :func:`bind`: checks the rows and T against the card's shared memory,
+    then launches (nothing for B = 0) and counts the launch in ``LAUNCHES``.
+    Raises on anything it does not take."""
     global LAUNCHES
     device = state_rows.device
     if device.type != "cuda":
-        return run_tick_block_plain(
-            control_cfg, physics_cfg, control_dt, T, substeps, state_rows,
-            sp_pos, sp_vel, sp_acc, goal_wind, obstacle_rows,
-        )
+        raise ValueError(f"the CUDA tick block takes CUDA tensors, got {device}")
     if T < 1 or substeps < 1:
         raise ValueError(f"T and substeps must be >= 1, got {T}, {substeps}")
+    if not ticks_fit(T, device):
+        limit = shared_limit(device)
+        raise ValueError(
+            f"the tick block takes T <= {max_ticks(limit)} on {device}: T={T} needs "
+            f"{shared_bytes(T)} bytes of shared memory a block, the card's limit is "
+            f"{limit}"
+        )
     B = state_rows.shape[1]
     _check_rows("state_rows", state_rows, ROWS, B, device)
     for name, x in (("sp_pos", sp_pos), ("sp_vel", sp_vel), ("sp_acc", sp_acc)):
@@ -467,9 +544,7 @@ def run_tick_block(
     out = torch.empty((ROWS, B), dtype=torch.float32, device=device)
     acc = torch.empty((ACC_ROWS, B), dtype=torch.float32, device=device)
     if B > 0:
-        lib = _library()
-        params = _params(_scalars(control_cfg, physics_cfg, control_dt, substeps),
-                         B, T, substeps, K)
+        params = _launch_params(control_cfg, physics_cfg, control_dt, T, substeps, B, K)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tick_block_launch(
             ctypes.byref(params), state_rows.data_ptr(), sp_pos.data_ptr(),

@@ -101,9 +101,12 @@ def uses_tick_block(config: ClosedLoopConfig, method: str, batch_shape,
                     device: torch.device) -> bool:
     """Whether a ``method`` episode runs the packed tick block. Its scope is
     the JAX package's: clamping anti-windup, the ``"lee"`` yaw convention,
-    one batch axis. Outside it, a "fused" episode on CPU tensors runs the
-    per-tick loop, as the JAX package does; on a CUDA device the kernel was
-    asked for, and this raises instead of running the plain loop."""
+    one batch axis; on a CUDA device also at most as many ticks a replan
+    (``substeps_per_plan``) as kernel B2's block holds in shared memory
+    (:func:`cuda_rollout.ticks_fit`, 601 on an H100). Outside it, a "fused"
+    episode on CPU tensors runs the per-tick loop, as the JAX package does;
+    on a CUDA device the kernel was asked for, and this raises before any
+    launch instead of running the plain loop."""
     if method != "fused":
         return False
     ctl = config.control
@@ -117,6 +120,10 @@ def uses_tick_block(config: ClosedLoopConfig, method: str, batch_shape,
         )
         if not ok
     ]
+    T = config.substeps_per_plan
+    if device.type == "cuda" and not cuda_rollout.ticks_fit(T, device):
+        limit = cuda_rollout.max_ticks(cuda_rollout.shared_limit(device))
+        outside.append(f"substeps_per_plan={T} (at most {limit} on {device})")
     if outside and device.type == "cuda":
         raise ValueError(
             f"kernel B2 does not take {', '.join(outside)}; pass "

@@ -4,7 +4,9 @@ cuda_rollout.py).
 On the CPU: the wrapper's rule (CPU tensors run the plain version and do
 not count as launches), the closed loop's packed path on CPU tensors, and
 the bookkeeping around the kernel (its source and the TPU kernel it
-replaces exist, the parameter struct matches the C one field by field).
+replaces exist, the parameter struct matches the C one field by field, the
+shared memory a block takes and the largest T it allows, the cached
+parameter struct and interpolation weights).
 On a CUDA device (tests marked ``cuda``): the hand-written kernel against
 ``run_tick_block_plain`` on the same rows, every float row at atol 1e-4 +
 rtol 1e-4 (nvcc contracts into FMAs; the plain version does not), R
@@ -166,6 +168,68 @@ def test_params_struct_matches_the_c_struct():
     assert abs(p.min_thrust - 0.5 * 1.5 * 9.81) < 1e-5
 
 
+def test_shared_memory_and_tick_limit_arithmetic(monkeypatch):
+    """max_ticks is the largest T whose block fits a limit, and ticks_fit
+    asks the card only above the 48 KB every card gives a block."""
+    assert cuda_rollout.shared_bytes(40) == 4 * 32 * (3 * 40 + 3 * 4) == 16896
+    assert cuda_rollout.max_ticks(232448) == 601  # an H100's opt-in limit
+    for limit in (16896, 48 * 1024, 100_000, 232448, 232448 + 383):
+        T = cuda_rollout.max_ticks(limit)
+        assert cuda_rollout.shared_bytes(T) <= limit < cuda_rollout.shared_bytes(T + 1)
+    assert cuda_rollout.max_ticks(16896) == 40 and cuda_rollout.max_ticks(16895) == 39
+    cuda = torch.device("cuda", 0)
+    asked = []
+
+    def limit(device):
+        asked.append(device)
+        return 232448
+
+    monkeypatch.setattr(cuda_rollout, "shared_limit", limit)
+    small = cuda_rollout.max_ticks(cuda_rollout.DEFAULT_SHARED_BYTES)
+    assert small == 124 and cuda_rollout.ticks_fit(small, cuda) and not asked
+    assert cuda_rollout.ticks_fit(601, cuda) and not cuda_rollout.ticks_fit(602, cuda)
+    assert asked == [cuda, cuda]
+
+
+def test_launch_params_are_built_once_per_configuration():
+    key = (BASE.control, BASE.physics, 0.0025, 40, 1, 2048, 3)
+    first = cuda_rollout._launch_params(*key)
+    again = cuda_rollout._launch_params(*key)
+    assert again is first
+    fresh = cuda_rollout._params(
+        cuda_rollout._scalars(BASE.control, BASE.physics, 0.0025, 1), 2048, 40, 1, 3)
+    assert bytes(first) == bytes(fresh)
+    other = cuda_rollout._launch_params(*key[:5], 2047, 3)
+    assert other is not first and other.B == 2047
+
+
+def test_setpoint_weights_are_copied_once_and_keep_their_values():
+    rng = np.random.default_rng(4)
+    plan = [torch.as_tensor(rng.normal(0, 2, (5, 20, 3)).astype(np.float32))
+            for _ in range(3)]
+    hits = cuda_rollout._lerp_tensor.cache_info().hits
+    first = cuda_rollout.setpoints_from_plan(*plan, 40, 0.0025, 0.1)
+    again = cuda_rollout.setpoints_from_plan(*plan, 40, 0.0025, 0.1)
+    assert cuda_rollout._lerp_tensor.cache_info().hits >= hits + 1
+    W = cuda_rollout._lerp_tensor(40, 0.0025, 0.1, 20, torch.float32, torch.device("cpu"))
+    assert W is cuda_rollout._lerp_tensor(40, 0.0025, 0.1, 20, torch.float32,
+                                          torch.device("cpu"))
+    W_fresh = torch.as_tensor(cuda_rollout._lerp_weights(40, 0.0025, 0.1, 20))
+    assert torch.equal(W, W_fresh)
+    for a, b, arr in zip(first, again, plan):
+        assert torch.equal(a, b)
+        ref = torch.einsum("tn,bnd->btd", W_fresh, arr).reshape(5, 120).T
+        assert torch.equal(a, ref)
+
+
+def test_launch_refuses_cpu_tensors():
+    rows, obs = _rows(4, 3, 1, 5)
+    before = cuda_rollout.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_rollout.launch_tick_block(None, *_args(3, 1, rows, obs))
+    assert cuda_rollout.LAUNCHES == before
+
+
 # ---- CUDA ---------------------------------------------------------------------
 
 @pytest.fixture
@@ -176,13 +240,14 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _compare(args, B, trigger):
+def _compare(args, B, trigger, ortho_tol=1e-5):
     before = cuda_rollout.LAUNCHES
     ks, ka = cuda_rollout.run_tick_block(*args)
     torch.cuda.synchronize()
     assert cuda_rollout.LAUNCHES == before + 1
     ps, pa = cuda_rollout.run_tick_block_plain(*args)
     assert torch.isfinite(ks).all() and torch.isfinite(ka).all()
+    assert (ks[26:] == 0).all() and (ka[4:] == 0).all()
     parted = (ks[21:25] != ps[21:25]).any(0)
     assert int(parted.sum()) <= max(1, int(0.001 * B))
     keep = ~parted
@@ -190,29 +255,44 @@ def _compare(args, B, trigger):
         torch.testing.assert_close(k[:, keep], p[:, keep], atol=1e-4, rtol=1e-4)
     R = ks[9:18].T.reshape(B, 3, 3)
     ortho = (torch.einsum("bij,bkj->bik", R, R) - torch.eye(3, device=R.device)).abs().max()
-    assert float(ortho) <= 1e-5
+    assert float(ortho) <= ortho_tol
     return ks, ka, ps
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T, sub, K, trigger", [
-    (40, 1, 3, 100), (25, 2, 3, 100), (40, 1, 3, 10), (40, 1, 0, 100),
+@pytest.mark.parametrize("T, sub, K, trigger, drag", [
+    (40, 1, 3, 100, 0.0), (25, 2, 3, 100, 0.0), (40, 1, 3, 10, 0.0), (40, 1, 0, 100, 0.0),
+    (1, 1, 3, 100, 0.0), (1, 3, 0, 100, 0.0), (9, 2, 8, 100, 0.0), (9, 3, 8, 100, 0.4),
+    (40, 1, 3, 100, 0.4),
 ])
-def test_cuda_tick_block_matches_plain(cuda_device, T, sub, K, trigger):
+def test_cuda_tick_block_matches_plain(cuda_device, T, sub, K, trigger, drag):
+    """Ticks 1-40 (at T=1 three of the metrics pass's warps get no tick),
+    1-3 substeps, the failsafe latch, no spheres or 8 with some switched
+    off (all of episode 0's), and wind with or without linear drag."""
     B = 256
     rows, obs = _rows(B, T, K, T + sub + K + trigger, trigger, cuda_device)
-    ks, ka, ps = _compare(_args(T, sub, rows, obs, trigger), B, trigger)
+    if K == 8:
+        radius = obs[3::4]  # (K, B) view
+        radius[1::2, ::3] = cuda_rollout.INACTIVE_RADIUS
+        radius[:, 0] = cuda_rollout.INACTIVE_RADIUS
+    args = list(_args(T, sub, rows, obs, trigger))
+    args[1] = BASE.physics._replace(drag_coefficient=drag)
+    ks, ka, ps = _compare(args, B, trigger)
     if trigger == 10:
         assert (ps[24] > trigger).any()  # the latch fired
     if K == 0:
         assert (ka[3] == 1e30).all()
+    if K == 8:
+        assert float(ka[3, 0]) >= 1e30 and bool((ka[3, 1:] < 1e30).all())
 
 
 @pytest.mark.cuda
-def test_cuda_tick_block_shapes_and_odd_batch(cuda_device):
-    for B in (1, 65, 130):
-        rows, obs = _rows(B, 7, 2, B, device=cuda_device)
-        _compare(_args(7, 1, rows, obs), B, 100)
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 65, 130, 2048])
+def test_cuda_tick_block_shapes_and_odd_batch(cuda_device, B):
+    """Blocks hold 32 episodes: a last block partly empty, exactly full or
+    one episode over; and a batch of none."""
+    rows, obs = _rows(B, 7, 2, B, device=cuda_device)
+    _compare(_args(7, 1, rows, obs), B, 100)
     rows, _ = _rows(0, 3, 0, 0, device=cuda_device)
     out, acc = cuda_rollout.run_tick_block(*_args(3, 1, rows, None))
     assert out.shape == (32, 0) and acc.shape == (8, 0)
@@ -257,24 +337,67 @@ def test_cuda_closed_loop_launches_both_kernels_once_per_replan(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_closed_loop_out_of_kernel_scope_raises(cuda_device):
-    """A "reference" yaw convention is outside B2's scope: on the card the
-    fused and auto episodes raise before any launch, and "torch" runs the
-    plain per-tick loop when asked for."""
+@pytest.mark.parametrize("field", ["yaw_convention", "substeps_per_plan"])
+def test_cuda_closed_loop_out_of_kernel_scope_raises(cuda_device, field):
+    """A "reference" yaw convention, or more ticks a replan than B2's block
+    holds in shared memory, is outside B2's scope: on the card the fused and
+    auto episodes raise before any launch, and "torch" runs the plain
+    per-tick loop when asked for."""
     config = BASE._replace(
         mpc=se3_mpc.SE3MPCConfig(prediction_horizon=8, max_iterations=2,
                                  tail_iterations=0),
         num_replans=2, substeps_per_plan=10,
-        control=BASE.control._replace(yaw_convention="reference"),
     )
+    if field == "yaw_convention":
+        config = config._replace(control=BASE.control._replace(yaw_convention="reference"))
+    else:
+        T = cuda_rollout.max_ticks(cuda_rollout.shared_limit(cuda_device)) + 1
+        config = config._replace(num_replans=1, substeps_per_plan=T)
     st = DroneState.zeros((2,), device=cuda_device).replace(
         position=torch.tensor([[0.0, 0, 3], [1, 0, 3]], device=cuda_device))
     goals = torch.tensor([[3.0, 0, 3], [3.0, 1, 4]], device=cuda_device)
     before = (cuda_mpc.LAUNCHES, cuda_rollout.LAUNCHES)
     for method in ("fused", "auto"):
-        with pytest.raises(ValueError, match="yaw_convention"):
+        with pytest.raises(ValueError, match=f"{field}.*method='torch'"):
             closed_loop.simulate_episode(config, None, st, goals, method=method)
     res = closed_loop.simulate_episode(config, None, st, goals, method="torch")
     assert (cuda_mpc.LAUNCHES, cuda_rollout.LAUNCHES) == before
     assert res.final_position.device.type == "cuda"
     assert torch.isfinite(res.final_position).all()
+
+
+def _steady_rows(B, T, seed, device):
+    """States as in _rows, holding their own position (zero velocity and
+    acceleration setpoints): a stable run over many ticks."""
+    rows, obs = _rows(B, 1, 2, seed, device=device)
+    S, gw = rows[0], rows[4]
+    spp = S[0:3].repeat(T, 1).contiguous()
+    zero = torch.zeros_like(spp)
+    return [S, spp, zero, zero.clone(), gw], obs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [40, 200, "largest"])
+def test_cuda_tick_block_at_the_largest_T(cuda_device, T):
+    """Long blocks up to the largest T the card's shared memory takes."""
+    largest = cuda_rollout.max_ticks(cuda_rollout.shared_limit(cuda_device))
+    T = largest if T == "largest" else T
+    assert 200 <= largest and T <= largest
+    # float32 Rodrigues updates drift off SO(3) a little every tick, in the
+    # kernel and the plain version alike. Read on an H100 over these seeds,
+    # the kernel's |R R^T - I| was at most 1.79e-6 at T=40, 6.32e-6 at 200
+    # and 2.34e-5 at 601 (the plain version's 2.03e-6, 8.58e-6, 2.13e-5):
+    # 3.2-4.5e-8 a tick. The limit, 1e-7 a tick, is 2.2-3.2x those readings.
+    for seed in (8, 9, 10, 11):
+        rows, obs = _steady_rows(33, T, seed, cuda_device)
+        _compare(_args(T, 1, rows, obs), 33, 100, ortho_tol=1e-7 * T)
+
+
+@pytest.mark.cuda
+def test_cuda_tick_block_above_the_largest_T_raises_before_a_launch(cuda_device):
+    T = cuda_rollout.max_ticks(cuda_rollout.shared_limit(cuda_device))
+    rows, obs = _steady_rows(33, T + 1, 9, cuda_device)
+    before = cuda_rollout.LAUNCHES
+    with pytest.raises(ValueError, match=f"T <= {T}"):
+        cuda_rollout.run_tick_block(*_args(T + 1, 1, rows, obs))
+    assert cuda_rollout.LAUNCHES == before

@@ -476,3 +476,19 @@ def test_tick_block_scope_runs_plain_on_cpu_and_raises_on_cuda(field, control, b
     else:
         with pytest.raises(ValueError, match=f"{field}.*method='torch'"):
             TL.uses_tick_block(cfg, "fused", batch_shape, cuda)
+
+
+@pytest.mark.parametrize("T, fits", [(40, True), (601, True), (602, False)])
+def test_tick_block_scope_holds_the_ticks_a_block_takes(monkeypatch, T, fits):
+    """On a CUDA device a replan of more ticks than kernel B2's block holds
+    (601 at an H100's opt-in shared memory) raises before any launch; on CPU
+    tensors the per-tick loop has no such limit."""
+    monkeypatch.setattr(TL.cuda_rollout, "shared_limit", lambda device: 232448)
+    cfg = TL.ClosedLoopConfig(substeps_per_plan=T)
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    assert TL.uses_tick_block(cfg, "fused", (4,), cpu)
+    if fits:
+        assert TL.uses_tick_block(cfg, "fused", (4,), cuda)
+    else:
+        with pytest.raises(ValueError, match="substeps_per_plan=602 .at most 601.*method='torch'"):
+            TL.uses_tick_block(cfg, "fused", (4,), cuda)
