@@ -4,7 +4,7 @@ Monte-Carlo for NVIDIA Hopper.
 A port of :mod:`dart_planner_tpu` (the JAX/Pallas package, which stays the
 reference) with the same module layout:
 
-- ``common/``     types, frames, errors
+- ``common/``     types, frames, errors, the default device, runtime metrics
 - ``ops/``        condensed dynamics, cost model, SO(3) operators, and the
   hand-written CUDA kernels: the solver (``ops/cuda_mpc.py`` over
   ``csrc/mpc_solve.cu``) and the closed-loop tick block
@@ -12,7 +12,10 @@ reference) with the same module layout:
 - ``planning/``   the batched two-phase projected-Newton solve, planner
   facade and registry
 - ``control/``    the geometric SE(3) controller
-- ``sim/``        rigid-body physics, closed-loop episodes, obstacle worlds
+- ``sim/``        rigid-body physics, closed-loop episodes, obstacle worlds,
+  the BASELINE scenario library and the resumable Monte-Carlo sweep
+- ``parallel/``   the scenario fleet over a grid of devices and processes
+  (``torch.distributed``)
 - ``perception/`` the log-odds voxel mapper
 - ``runtime/``    the planner-to-actuator fast path and the C++ RT executor
   bindings

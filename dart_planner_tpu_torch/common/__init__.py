@@ -1,1 +1,1 @@
-"""Shared types, frames and errors."""
+"""Shared types, frames, errors, the default device and runtime metrics."""

@@ -140,3 +140,47 @@ class Trajectory(_Replace):
     @property
     def horizon(self) -> int:
         return self.timestamps.shape[-1]
+
+
+@dataclass
+class Pose(_Replace):
+    """Position + orientation (roll, pitch, yaw in rad)."""
+
+    position: Tensor
+    orientation: Tensor
+
+
+@dataclass
+class Twist(_Replace):
+    """Linear + angular velocity."""
+
+    linear: Tensor
+    angular: Tensor
+
+
+@dataclass
+class Accel(_Replace):
+    """Linear + angular acceleration."""
+
+    linear: Tensor
+    angular: Tensor
+
+
+@dataclass
+class EstimatedState(_Replace):
+    """Standardized state-estimator output."""
+
+    timestamp: Tensor
+    pose: Pose
+    twist: Twist
+    accel: Accel
+    source: str = "unknown"
+
+    def to_drone_state(self) -> DroneState:
+        return DroneState(
+            timestamp=self.timestamp,
+            position=self.pose.position,
+            velocity=self.twist.linear,
+            attitude=self.pose.orientation,
+            angular_velocity=self.twist.angular,
+        )

@@ -229,6 +229,55 @@ def quadratic_hessian(
     return H
 
 
+
+def obstacle_gn_hessian(
+    u: Tensor,
+    prob: Problem,
+    weights: CostWeights,
+    dt: float,
+    mass: float,
+    gravity_vec: Tensor,
+    include_obstacles: bool = True,
+) -> Tensor:
+    """Dense Gauss-Newton Hessian of the hinge penalties (obstacles,
+    ground, velocity envelope) pulled back to thrust space: (..., N, 3, N, 3).
+
+    Per step, the obstacle hinges give H_p[k] = 2 w_obs sum_o n n^T over the
+    active spheres (n the unit normal), the ground hinge 2 w_g e_z e_z^T on
+    active steps; H_u[(i,a),(j,b)] = sum_k S_p[k,i] S_p[k,j] H_p[k,a,b] / m^2.
+    The velocity hinge adds 2 w_vb per active axis through S_v. The solver
+    never forms this matrix (it applies the blocks of
+    :func:`penalty_blocks`); it is the dense check of those blocks."""
+    pos, vel, _ = dynamics.rollout_linear(u, prob.p0, prob.v0, dt, mass, gravity_vec)
+    N = u.shape[-2]
+    kw = dict(dtype=u.dtype, device=u.device)
+    Hp = torch.zeros(u.shape[:-2] + (N, 3, 3), **kw)
+    if include_obstacles:
+        diff, d, r_safe = _obstacle_geometry(pos, prob.obstacles)
+        active = ((r_safe > d) & prob.obstacle_mask[..., None, :]).to(u.dtype)
+        n = diff / d[..., None]
+        Hp = Hp + 2.0 * weights.obstacle * torch.einsum(
+            "...nka,...nkb,...nk->...nab", n, n, active
+        )
+    if weights.ground > 0.0:
+        g_active = (pos[..., 2] < weights.ground_altitude).to(u.dtype)
+        e_zz = torch.zeros((3, 3), **kw)
+        e_zz[2, 2] = 1.0
+        Hp = Hp + 2.0 * weights.ground * g_active[..., None, None] * e_zz
+    S_p_np, S_v_np, _ = dynamics.rollout_matrices(N, float(dt))
+    S_p = torch.as_tensor(S_p_np, **kw) / mass
+    H_u = torch.einsum("ki,kj,...kab->...iajb", S_p, S_p, Hp)
+    if weights.velocity_bound > 0.0:
+        v_active = (vel.abs() > effective_vmax(prob, weights)).to(u.dtype)
+        S_v = torch.as_tensor(S_v_np, **kw) / mass
+        # per-axis blocks: the axes never couple, so spread with delta_ab
+        tmp = torch.einsum(
+            "ki,kj,...ka->...iaj", S_v, S_v, 2.0 * weights.velocity_bound * v_active
+        )
+        H_u = H_u + tmp[..., None] * torch.eye(3, **kw)[None, :, None, :]
+    return H_u
+
+
 def _outer(a: Tensor, b: Tensor) -> Tensor:
     return a[..., :, None] * b[..., None, :]
 

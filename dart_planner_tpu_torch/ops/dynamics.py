@@ -121,3 +121,40 @@ def rollout_scan(
         p = p + v * dt + 0.5 * a_k * dt * dt
         v = v + a_k * dt
     return torch.stack(ps, dim=-2), torch.stack(vs, dim=-2), a
+
+
+def simulator_step(
+    pos: Tensor,
+    vel: Tensor,
+    att: Tensor,
+    ang_vel: Tensor,
+    thrust: Tensor,
+    torque: Tensor,
+    dt: float,
+    mass: float = 1.5,
+    gravity: float = 9.81,
+    inertia_diag: Tensor | None = None,
+    wind: Tensor | None = None,
+    thrust_along_body_z: bool = False,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One Euler step of the point-mass + rigid-rotation simulator.
+
+    ``thrust_along_body_z=False`` reproduces the reference
+    ``DroneSimulator.step``: thrust acts along *world* z, semi-implicit
+    Euler (velocity first, then position with the new velocity). With
+    ``True`` the thrust acts along the body z-axis (full SE(3) model)."""
+    from dart_planner_tpu_torch.ops.so3 import euler_to_rotmat
+
+    kw = dict(dtype=pos.dtype, device=pos.device)
+    if inertia_diag is None:
+        inertia_diag = torch.tensor([0.1, 0.1, 0.2], **kw)
+    if wind is None:
+        wind = torch.zeros(3, **kw)
+    e3 = torch.tensor([0.0, 0.0, 1.0], **kw).expand(pos.shape)
+    thrust_dir = euler_to_rotmat(att)[..., :, 2] if thrust_along_body_z else e3
+    acc = -gravity * e3 + thrust[..., None] / mass * thrust_dir + wind / mass
+    new_vel = vel + acc * dt
+    new_pos = pos + new_vel * dt
+    new_ang_vel = ang_vel + torque / inertia_diag * dt
+    new_att = att + new_ang_vel * dt
+    return new_pos, new_vel, new_att, new_ang_vel

@@ -401,7 +401,11 @@ class GeometricMapper:
         self.total_queries = 0
 
     def _t(self, x, dtype=torch.float32) -> Tensor:
-        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+        """``x`` (a tensor on any device, or anything numpy takes) as a
+        ``dtype`` tensor on the mapper's device."""
+        if not isinstance(x, Tensor):
+            x = np.asarray(x)
+        return torch.as_tensor(x, device=self.device).to(dtype)
 
     def update_map(self, origins, directions, hit_distances) -> None:
         self.map = update_with_scan(

@@ -9,6 +9,7 @@ from dart_planner_tpu_torch.planning.se3_mpc import (
     solve,
     solve_se3_mpc,
 )
+from dart_planner_tpu_torch.planning.reference_mode import solve_reference_mode
 
 PlannerFactory.register("se3_mpc", SE3MPCPlanner)
 
@@ -21,4 +22,5 @@ __all__ = [
     "make_problem",
     "solve",
     "solve_se3_mpc",
+    "solve_reference_mode",
 ]

@@ -1,5 +1,6 @@
-"""Simulation: batched drone physics and closed-loop Monte-Carlo fleets
-(PyTorch counterpart of :mod:`dart_planner_tpu.sim`)."""
+"""Simulation: batched drone physics, closed-loop Monte-Carlo fleets, the
+BASELINE scenario library and the resumable sweep (PyTorch counterpart of
+:mod:`dart_planner_tpu.sim`)."""
 
 from dart_planner_tpu_torch.sim.physics import (
     PhysicsConfig,
@@ -19,6 +20,18 @@ from dart_planner_tpu_torch.sim.worlds import (
     sample_worlds,
     perceive_worlds,
 )
+from dart_planner_tpu_torch.sim.scenarios import (
+    Figure8Result,
+    figure8_tracking,
+    hover_to_waypoint,
+    mapper_navigation,
+)
+from dart_planner_tpu_torch.sim.checkpoint import (
+    FleetCheckpoint,
+    load_checkpoint,
+    run_sweep,
+    save_checkpoint,
+)
 
 __all__ = [
     "PhysicsConfig",
@@ -33,4 +46,12 @@ __all__ = [
     "WorldConfig",
     "sample_worlds",
     "perceive_worlds",
+    "Figure8Result",
+    "figure8_tracking",
+    "hover_to_waypoint",
+    "mapper_navigation",
+    "FleetCheckpoint",
+    "load_checkpoint",
+    "run_sweep",
+    "save_checkpoint",
 ]

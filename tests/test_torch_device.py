@@ -20,8 +20,12 @@ from dart_planner_tpu_torch.control.geometric import (
 from dart_planner_tpu_torch.perception.mapper import GeometricMapper
 from dart_planner_tpu_torch.planning import PlannerFactory
 from dart_planner_tpu_torch.planning import se3_mpc
+from dart_planner_tpu_torch.parallel import distributed, scenario
+from dart_planner_tpu_torch.planning.reference_mode import solve_reference_mode
 from dart_planner_tpu_torch.runtime.fast_path import PlannerFastPath
-from dart_planner_tpu_torch.sim import closed_loop, worlds
+from dart_planner_tpu_torch.sim import closed_loop, scenarios, worlds
+
+SMALL = se3_mpc.SE3MPCConfig(prediction_horizon=8, max_iterations=2)
 
 ENTRY_POINTS = {
     "SE3MPCPlanner": lambda: se3_mpc.SE3MPCPlanner().device,
@@ -44,6 +48,16 @@ ENTRY_POINTS = {
     "gravity_vector": lambda: frames.gravity_vector().device,
     "ControllerState.zeros": lambda: ControllerState.zeros(GeometricConfig()).last_time.device,
     "ControlSetpoint.hover_at": lambda: ControlSetpoint.hover_at((0.0, 0.0, 1.0)).position.device,
+    "up_vector": lambda: frames.up_vector().device,
+    "CoordinateFrameManager": lambda: frames.CoordinateFrameManager().get_up_vector().device,
+    "solve_reference_mode": lambda: solve_reference_mode(
+        SMALL, None, None, (1.0, 2.0, 3.0)).positions.device,
+    "make_fleet_mesh": lambda: scenario.make_fleet_mesh().local_devices[0],
+    "global_fleet_mesh": lambda: distributed.global_fleet_mesh().local_devices[0],
+    "hover_to_waypoint": lambda: scenarios.hover_to_waypoint(SMALL).positions.device,
+    "mapper_navigation": lambda: scenarios.mapper_navigation(SMALL)[0].positions.device,
+    "figure8_tracking": lambda: scenarios.figure8_tracking(
+        SMALL, num_replans=2).positions.device,
 }
 
 

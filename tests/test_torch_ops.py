@@ -223,3 +223,55 @@ def test_so3_matches_jax(name):
     ref = _np(getattr(jso3, name)(*args))
     out = getattr(tso3, name)(*[_t(a) if isinstance(a, np.ndarray) else a for a in args])
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+# ---- the dense Gauss-Newton Hessian and the simulator step ----------------
+
+@pytest.mark.parametrize("v_cap", [False, True])
+@pytest.mark.parametrize("include_obstacles", [True, False])
+def test_obstacle_gn_hessian_matches_jax(include_obstacles, v_cap):
+    """The dense (..., N, 3, N, 3) hinge Hessian, at the penalty blocks'
+    tolerance (entries reach 1e4: atol 1e-4 plus 1e-6 relative)."""
+    rng = np.random.default_rng(5)
+    pj, pt, wj, wt = _problems(rng, v_cap=v_cap)
+    u = _thrusts(rng)
+    gj, gt = _gvec()
+    ref = _np(jcosts.obstacle_gn_hessian(u, pj, wj, DT, MASS, gj,
+                                         include_obstacles=include_obstacles))
+    out = tcosts.obstacle_gn_hessian(_t(u), pt, wt, DT, MASS, gt,
+                                     include_obstacles=include_obstacles)
+    assert out.shape == (4, N, 3, N, 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-6)
+    assert np.abs(ref).max() > 1.0  # some hinge is live
+    sym = out.reshape(4, 3 * N, 3 * N)
+    torch.testing.assert_close(sym, sym.transpose(-1, -2), atol=1e-3, rtol=1e-6)
+
+
+@pytest.mark.parametrize("body_z", [False, True])
+def test_simulator_step_matches_jax(body_z):
+    """Fifty semi-implicit Euler steps, world-z or body-z thrust, with wind
+    and a custom inertia, at 1e-5."""
+    rng = np.random.default_rng(6)
+    B = 5
+    state = [rng.normal(0, s, (B, 3)).astype(np.float32) for s in (1.0, 0.5, 0.2, 0.1)]
+    inertia = np.float32([0.02, 0.03, 0.04])
+    wind = rng.normal(0, 1, (B, 3)).astype(np.float32)
+    js = [jnp.asarray(x) for x in state]
+    ts = [_t(x) for x in state]
+    for _ in range(50):
+        thrust = rng.uniform(10, 18, B).astype(np.float32)
+        torque = rng.normal(0, 0.01, (B, 3)).astype(np.float32)
+        js = jdyn.simulator_step(*js, jnp.asarray(thrust), jnp.asarray(torque), 0.01,
+                                 inertia_diag=jnp.asarray(inertia), wind=jnp.asarray(wind),
+                                 thrust_along_body_z=body_z)
+        ts = tdyn.simulator_step(*ts, _t(thrust), _t(torque), 0.01, inertia_diag=_t(inertia),
+                                 wind=_t(wind), thrust_along_body_z=body_z)
+    for a, b in zip(ts, js):
+        np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-5, rtol=1e-5)
+    # the defaults (no wind, the reference's inertia) agree as well
+    one = [x[0] for x in state]
+    ref = jdyn.simulator_step(*[jnp.asarray(x) for x in one], jnp.float32(14.0),
+                              jnp.zeros(3, jnp.float32), 0.01)
+    out = tdyn.simulator_step(*[_t(x) for x in one], _t(14.0), torch.zeros(3), 0.01)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-6)
