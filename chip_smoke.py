@@ -30,7 +30,15 @@ scenario fleet of 131,072 through ``parallel.solve_fleet`` with its stats
 all-reduced over an NCCL group of one process (phase 11), the BASELINE
 scenarios hover-to-waypoint, mapper navigation and figure-8 tracking at its
 defaults, with its first 20 replans against the plain path (phase 12), and
-the resumable sweep, stopped after a chunk and resumed (phase 13). Phases 7
+the resumable sweep, stopped after a chunk and resumed (phase 13); and the
+three-layer mission stack (phase 14): the hardware mission runner over the
+simulated vehicle at the deployment's settings (400 Hz control, 50 Hz
+replans through B1 at the default solver; plan and vehicle-tick times by
+CUDA events, the control task's achieved rate and overruns, the device's
+idle share, 14a), the three-layer loop of L1 goals, L2 plans, the smoother
+and the real-time executor (14b), and B1 on the mission's first replans
+against the plain path, the batched smoother and the EKF fleet on the card
+against the CPU (14c). Phases 7
 and 10 time the kernels against their plain versions with CUDA events, and
 the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -42,7 +50,8 @@ library and times it turn by turn against the package's kernel (old, new,
 new, old; with the wrapper and alone), and prints the largest |new - old|
 over the state and accumulator rows.
 
-Each phase prints one line. The line before the last is the per-kernel JSON
+Each phase prints one line, and the script its total seconds before the
+per-kernel JSON record. The line before the last is the per-kernel JSON
 record; the last line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed. Exits non-zero without it on any failure, or when
 no CUDA device is visible. Imports nothing of JAX.
@@ -606,6 +615,14 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return profile_summary(prof, wall)
+
+
+def profile_summary(prof, wall: float) -> dict:
+    """A finished torch.profiler pass over ``wall`` seconds of the host
+    clock: the device's busy time (its own entries summed), idle share and
+    top kernels and copies, as :func:`device_profile` reports them."""
+    from torch.autograd import DeviceType
 
     ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)),
@@ -1359,6 +1376,481 @@ def sweep_phase(dev, card: str) -> dict:
             "success": resumed.success_rate, "episodes_per_s": SWEEP_EPISODES / t3}
 
 
+MISSION_WAYPOINTS = [(3.0, 0.0, 3.0), (3.0, 3.0, 3.0)]  # tests/test_hardware_mission.py
+MISSION_PARITY_REPLANS = 10
+# the tick window (400 ticks, 1 s of the vehicle's clock at 400 Hz) traced for
+# the device's idle share during the mission, after a second of warm flight
+MISSION_PROFILE_TICKS = (400, 800)
+VEHICLE_FLEET = 2048
+
+
+def _event_pair():
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    return start
+
+
+def _elapsed(pairs) -> list:
+    """ms of each (start, end) event pair, after a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def _pcts(ms: list) -> str:
+    import numpy as np
+
+    return (f"p50 {float(np.percentile(ms, 50)):.3f} p95 {float(np.percentile(ms, 95)):.3f} "
+            f"max {max(ms):.3f} ms over {len(ms)}")
+
+
+class _TimedTicks:
+    """Wraps a vehicle's ``step`` with CUDA events around each tick. With a
+    ``trace`` window (first, end) of tick indices it instead starts a
+    torch.profiler pass (device activity only) at the first and ends the
+    mission at the end, so the trace covers that window of a flying
+    mission and its processing falls after the mission."""
+
+    def __init__(self, step, runner=None, trace=None):
+        self.step, self.runner, self.trace = step, runner, trace
+        self.pairs, self.n, self.prof, self.t0, self.t1 = [], 0, None, 0.0, 0.0
+
+    def __call__(self, dt=None):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.trace and self.n == self.trace[0]:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        start = _event_pair()
+        out = self.step(dt)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.pairs.append((start, end))
+        self.n += 1
+        if self.trace and self.n == self.trace[1]:
+            torch.cuda.synchronize()
+            self.t1 = time.perf_counter()
+            self.runner.state.active = False  # ends the mission: the window is flown
+            self.runner._mission_done.set()
+        return out
+
+    def summary(self) -> dict:
+        """The traced window's device time (after the mission)."""
+        check(self.prof is not None and self.t1 > 0, f"mission: ended after {self.n} "
+              f"ticks, before the traced window {self.trace}")
+        self.prof.__exit__(None, None, None)
+        return profile_summary(self.prof, self.t1 - self.t0)
+
+
+def _fly(vehicle, runner, ticks) -> tuple:
+    """``runner.start_mission`` over MISSION_WAYPOINTS with ``ticks`` as the
+    vehicle's step, after one tick outside the mission (the tests' warm-up),
+    with the launch counts set to 0 just before and read just after:
+    (report, wall seconds, launches)."""
+    import asyncio
+
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+
+    vehicle.step = ticks
+
+    async def fly():
+        await vehicle.connect()
+        await vehicle.arm()
+        vehicle.step()
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+        t0 = time.perf_counter()
+        report = await runner.start_mission(MISSION_WAYPOINTS)
+        torch.cuda.synchronize()
+        return report, time.perf_counter() - t0, {"B1": cuda_mpc.LAUNCHES,
+                                                  "B2": cuda_rollout.LAUNCHES}
+
+    return asyncio.run(fly())
+
+
+def mission_phase(dev, card: str) -> dict:
+    """Phase 14a: the hardware mission at the deployment's settings. A
+    ``MissionRunner`` over ``SimulatedVehicleIO`` on the card at the default
+    ``MissionConfig`` (400 Hz control, 50 Hz planning) and the default
+    ``SE3MPCConfig`` flies the two waypoints of tests/test_hardware_mission.py,
+    with the launch counts set to 0 just before and read just after. Every
+    plan is timed by CUDA events around ``plan_trajectory``, every vehicle
+    tick likewise, and the first MISSION_PARITY_REPLANS solves are recorded
+    (problem, warm start, positions) for phase 14c. A second flight, traced
+    by torch.profiler over ticks MISSION_PROFILE_TICKS and ended there,
+    gives the device's idle share."""
+    import torch
+
+    from dart_planner_tpu_torch import DroneState
+    from dart_planner_tpu_torch.hardware.mission import MissionConfig, MissionRunner
+    from dart_planner_tpu_torch.hardware.simulated_vehicle import SimulatedVehicleIO
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    config = se3_mpc.SE3MPCConfig()
+    # the facade's launches a plan, on a planner of its own
+    warm = se3_mpc.SE3MPCPlanner(config, device=dev)
+    torch.cuda.synchronize()
+    before = cuda_mpc.LAUNCHES
+    warm.plan_trajectory(DroneState.create(position=(0.0, 0.0, 2.0), device=dev),
+                         MISSION_WAYPOINTS[0])
+    torch.cuda.synchronize()
+    per_plan = cuda_mpc.LAUNCHES - before
+    check(per_plan == 2, f"mission: {per_plan} launches of B1 a plan, not 2 (two-phase)")
+
+    def mission():
+        vehicle = SimulatedVehicleIO({"initial_position": (0.0, 0.0, 2.0)})
+        check(vehicle.device == dev, f"mission: the vehicle is on {vehicle.device}")
+        planner = se3_mpc.SE3MPCPlanner(config)  # the card by default
+        runner = MissionRunner(vehicle, MissionConfig(), planner=planner)
+        check(runner.device == dev, f"mission: the runner is on {runner.device}")
+        return vehicle, planner, runner
+
+    per_tick = tick_launches(dev)
+    vehicle, planner, runner = mission()
+    plan_pairs, records = [], []
+    plan = planner.plan_trajectory
+
+    def timed_plan(state, goal):
+        start = _event_pair()
+        traj = plan(state, goal)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        plan_pairs.append((start, end))
+        return traj
+
+    solve = se3_mpc.solve
+
+    def recording_solve(cfg, prob, u_init=None, use_obstacles=True, method="auto"):
+        res = solve(cfg, prob, u_init, use_obstacles, method)
+        if len(records) < MISSION_PARITY_REPLANS:
+            records.append((prob, None if u_init is None else u_init.clone(),
+                            use_obstacles, res.positions.clone()))
+        return res
+
+    planner.plan_trajectory = timed_plan
+    ticks = _TimedTicks(vehicle.step)
+    se3_mpc.solve = recording_solve
+    try:
+        report, wall, launches = _fly(vehicle, runner, ticks)
+    finally:
+        se3_mpc.solve = solve
+    plan_ms = _elapsed(plan_pairs)
+    tick_ms = _elapsed(ticks.pairs[1:])  # without the warm-up tick
+    ctl = report["scheduler"]["tasks"]["control"]
+    plans = len(runner.state.planning_times_ms)
+    check(plans == len(plan_ms), f"mission: {len(plan_ms)} calls of plan_trajectory, "
+          f"{plans} plans recorded")
+    check(report["mission_complete"], f"mission: not complete: {report}")
+    check(report["waypoints_reached"] == 2 and report["failsafe_reason"] is None,
+          f"mission: {report['waypoints_reached']} waypoints, failsafe "
+          f"{report['failsafe_reason']!r}")
+    check(report["planning_failures"] == 0,
+          f"mission: {report['planning_failures']} planning failures")
+    check(planner.emergency_plans == 0,
+          f"mission: {planner.emergency_plans} emergency (hover) plans returned")
+    check(launches == {"B1": plans * per_plan, "B2": 0},
+          f"mission: launches {launches}, not {plans} plans x {per_plan} of B1 and none of B2")
+    check(len(records) == MISSION_PARITY_REPLANS, f"mission: {len(records)} replans recorded")
+
+    # the traced flight: the same mission, ended after the traced window
+    tvehicle, tplanner, trunner = mission()
+    traced = _TimedTicks(tvehicle.step, trunner, MISSION_PROFILE_TICKS)
+    _, twall, tlaunches = _fly(tvehicle, trunner, traced)
+    prof = traced.summary()
+    tplans = len(trunner.state.planning_times_ms)
+    check(prof["busy"] > 0, "mission: the traced window holds no device time")
+    check(tlaunches == {"B1": tplans * per_plan, "B2": 0},
+          f"traced mission: launches {tlaunches}, not {tplans} plans x {per_plan}")
+    print(f"[14a mission] ({card}) MissionRunner over SimulatedVehicleIO on {dev}, "
+          f"MissionConfig() (control {runner.config.control_frequency:.0f} Hz, planning "
+          f"{runner.config.planning_frequency:.0f} Hz), SE3MPCConfig() (N={config.prediction_horizon}"
+          f", {config.max_iterations} rounds, two-phase): complete, "
+          f"{report['waypoints_reached']} waypoints, {plans} plans, 0 planning failures, "
+          f"0 emergency plans, launches {launches} ({per_plan} of B1 a plan); a vehicle "
+          f"tick {per_tick['kernels']:.0f} kernel launches and {per_tick['copies']:.0f} "
+          f"copies on the card, {per_tick['ops']:.0f} top-level host ops; wall "
+          f"{wall:.3f} s for {vehicle.sim_time:.3f} s of the vehicle's clock; plan (CUDA "
+          f"events around plan_trajectory) {_pcts(plan_ms)}; vehicle tick (CUDA events around "
+          f"step) {_pcts(tick_ms)}; control task: {ctl['execution_count']} ticks at "
+          f"{ctl.get('achieved_frequency_hz', 0.0):.1f} Hz achieved, {ctl['overruns']} overruns "
+          f"(> {1e3 / runner.config.control_frequency:.2f} ms), {ctl['missed_deadlines']} "
+          f"missed deadlines, execution mean {ctl.get('mean_execution_ms', 0.0):.3f} p95 "
+          f"{ctl.get('p95_execution_ms', 0.0):.3f} max {ctl.get('max_execution_ms', 0.0):.3f} "
+          f"ms (host clock). Traced flight (ended after tick {MISSION_PROFILE_TICKS[1]}, "
+          f"{tplans} plans, launches {tlaunches}, {twall:.3f} s): device idle share "
+          f"{prof['idle']:.4f} over ticks {MISSION_PROFILE_TICKS} ({prof['busy'] * 1e3:.3f} ms "
+          f"busy of {prof['wall'] * 1e3:.3f} ms, torch.profiler, device activity only; top "
+          f"{prof['top'][:3]})", flush=True)
+    return {"launches": launches["B1"], "plans": plans, "per_plan": per_plan,
+            "records": records, "config": config, "plan_ms": plan_ms, "tick_ms": tick_ms,
+            "wall_s": wall, "idle": prof["idle"], "control": ctl, "per_tick": per_tick}
+
+
+def tick_launches(dev, ticks: int = 20) -> dict:
+    """What one tick of the simulated vehicle on the card issues, from a
+    torch.profiler pass over ``ticks`` ticks of a vehicle flying its
+    takeoff plan: device kernels, device copies (memcpy and memset) and
+    top-level host ops, each a tick."""
+    import asyncio
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dart_planner_tpu_torch.hardware.simulated_vehicle import SimulatedVehicleIO
+
+    vehicle = SimulatedVehicleIO({"initial_position": (0.0, 0.0, 2.0)}, device=dev)
+
+    async def arm():
+        await vehicle.connect()
+        await vehicle.arm()
+        await vehicle.takeoff(3.0)
+
+    asyncio.run(arm())
+    for _ in range(5):
+        vehicle.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            vehicle.step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    copies = sum(1 for e in device if "memcpy" in e.name.lower() or "memset" in e.name.lower())
+    ops = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+              and e.name.startswith("aten::"))
+    return {"kernels": (len(device) - copies) / ticks, "copies": copies / ticks,
+            "ops": ops / ticks}
+
+
+class _RatePlant:
+    """The rigid plant of tests/test_three_layer_rt.py, flown on thrust and
+    body-rate commands, on the host (float64 numpy)."""
+
+    MASS, GRAVITY = 1.5, (0.0, 0.0, -9.81)
+
+    def __init__(self, position):
+        import numpy as np
+
+        self.pos = np.asarray(position, float)
+        self.vel = np.zeros(3)
+        self.att = np.zeros(3)
+
+    def step(self, thrust, rates, dt):
+        import numpy as np
+        import torch
+
+        from dart_planner_tpu_torch.ops import so3
+
+        self.att = self.att + np.asarray(rates) * dt
+        self.att[:2] = np.clip(self.att[:2], -0.6, 0.6)
+        R = so3.euler_to_rotmat(torch.tensor(self.att, dtype=torch.float32)).numpy()
+        acc = R @ np.array([0.0, 0.0, float(thrust)]) / self.MASS + np.asarray(self.GRAVITY)
+        self.vel = self.vel + acc * dt
+        self.pos = self.pos + self.vel * dt
+
+    def setpoint(self, acc_des):
+        """Attitude and thrust from an acceleration, at yaw 0."""
+        import numpy as np
+
+        u = self.MASS * (np.asarray(acc_des, float) - np.asarray(self.GRAVITY))
+        pitch = np.arctan2(u[0], max(u[2], 1e-6))
+        roll = np.arctan2(-u[1], float(np.hypot(u[0], u[2])))
+        return np.array([roll, pitch, 0.0]), float(np.linalg.norm(u))
+
+
+def three_layer_phase(dev, card: str, per_plan: int) -> dict:
+    """Phase 14b: the three-layer loop of tests/test_three_layer_rt.py on the
+    card at the default ``SE3MPCConfig``: L1 ``GlobalMissionPlanner`` goals,
+    L2 plans (kernel B1) at 10 Hz, the trajectory smoother on the card, the
+    real-time control-loop executor (C++ when it builds), a host plant; with
+    the launch counts set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch import DroneState
+    from dart_planner_tpu_torch.control.smoother import TrajectorySmoother
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning import se3_mpc
+    from dart_planner_tpu_torch.planning.global_mission import (
+        GlobalMissionPlanner, MissionPhase, SemanticWaypoint)
+    from dart_planner_tpu_torch.runtime.rt_executor import RealTimeControlLoop, create_control_loop
+
+    mission = GlobalMissionPlanner()
+    mission.set_mission_waypoints([SemanticWaypoint(MISSION_WAYPOINTS[0], "survey_corner"),
+                                   SemanticWaypoint(MISSION_WAYPOINTS[1], "goal_pad")])
+    planner = se3_mpc.SE3MPCPlanner(se3_mpc.SE3MPCConfig())
+    smoother = TrajectorySmoother()
+    check(planner.device == dev and smoother.device == dev, "three-layer: not on the card")
+    loop = create_control_loop(frequency_hz=200.0, prefer_native=True)
+    loop.set_gains([1.5, 1.5, 4.0], [0.0, 0.0, 0.2], [1.0, 1.0, 2.5],
+                   [6.0, 6.0, 3.0], [0.0, 0.0, 0.0], [0.5, 0.5, 0.3])
+    plant = _RatePlant([0.0, 0.0, 0.5])
+
+    def state(t):
+        return DroneState.create(timestamp=t, position=plant.pos, velocity=plant.vel,
+                                 attitude=plant.att, device=dev)
+
+    phases, hits, plans = set(), 0, 0
+    torch.cuda.synchronize()
+    cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+    loop.start()
+    try:
+        t0 = time.perf_counter()
+        last_plan, last_tick, goal = -1.0, t0, None
+        while time.perf_counter() < t0 + 45.0:
+            now = time.perf_counter() - t0
+            st = state(now)
+            phases.add(mission.current_phase)
+            if now - last_plan >= 0.1:  # 10 Hz replans (L1 + L2)
+                goal = mission.get_current_goal(st)
+                traj = planner.plan_trajectory(st, goal)
+                plans += 1
+                smoother.update_trajectory(
+                    traj.replace(timestamps=traj.timestamps - traj.timestamps[..., :1] + now),
+                    now)
+                last_plan = now
+            pos_d, vel_d, acc_d = (x.cpu().numpy().astype(float)
+                                   for x in smoother.get_desired_state(now, st))
+            att_d, thrust_ff = plant.setpoint(
+                acc_d + 2.5 * (pos_d - plant.pos) + 3.0 * (vel_d - plant.vel))
+            loop.set_state(plant.pos, plant.vel, plant.att, np.zeros(3))
+            loop.set_setpoint(pos_d, vel_d, att_d, np.zeros(3), thrust_ff=thrust_ff)
+            cmd = loop.get_command()
+            t_now = time.perf_counter()
+            dt, last_tick = min(t_now - last_tick, 0.05), t_now
+            if cmd is not None:
+                plant.step(cmd["thrust"], [cmd["roll_rate"], cmd["pitch_rate"],
+                                           cmd["yaw_rate"]], dt)
+            if goal is not None and np.linalg.norm(plant.pos - np.asarray(goal)) < 0.6:
+                hits += 1
+            if mission.current_phase in (MissionPhase.LANDING, MissionPhase.EMERGENCY):
+                break
+            time.sleep(0.004)
+        wall = time.perf_counter() - t0
+    finally:
+        loop.stop()
+    torch.cuda.synchronize()
+    launches = {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}
+    stats = loop.get_stats()
+    pstats = planner.get_planning_stats()
+    seen = sorted(p.value for p in phases)
+    check({MissionPhase.TAKEOFF, MissionPhase.NAVIGATION} <= phases,
+          f"three-layer: phases seen {seen}")
+    check(mission.current_phase is MissionPhase.LANDING,
+          f"three-layer: ended in {mission.current_phase.value} at {plant.pos}")
+    check(hits > 0, f"three-layer: no goal reached; position {plant.pos}")
+    check(pstats["success_rate"] > 0.9 and pstats["emergency_plans"] == 0,
+          f"three-layer: planner {pstats}")
+    check(stats["iteration_count"] > 500
+          and stats["missed_deadlines"] <= 0.5 * stats["iteration_count"],
+          f"three-layer: RT loop {stats}")
+    check(launches == {"B1": plans * per_plan, "B2": 0},
+          f"three-layer: launches {launches}, not {plans} plans x {per_plan} of B1")
+    kind = "C++" if isinstance(loop, RealTimeControlLoop) else "Python"
+    print(f"[14b three-layer] ({card}) GlobalMissionPlanner -> SE3MPCPlanner (SE3MPCConfig(), "
+          f"{dev}) -> TrajectorySmoother ({dev}) -> {kind} RT loop at 200 Hz -> plant: phases "
+          f"{seen}, {hits} control steps within 0.6 m of a goal, LANDING reached in {wall:.3f} s "
+          f"(host clock); {plans} plans, success {pstats['success_rate']:.3f}, mean "
+          f"{pstats['mean_planning_time_ms']:.3f} ms (host clock), launches {launches}; RT loop "
+          f"{stats['iteration_count']} iterations, {stats['missed_deadlines']} missed deadlines",
+          flush=True)
+    return {"launches": launches["B1"], "plans": plans, "wall_s": wall}
+
+
+def vehicle_parity_phase(dev, card: str, mission: dict) -> float:
+    """Phase 14c: kernel B1 on the mission's first replans against the plain
+    path on the same problems and warm starts (positions to 1e-3 m, as
+    phase 12 holds figure-8's replans); the batched smoother (B=2048) and
+    the EKF fleet on the card against the same calls on CPU tensors.
+    Returns B1's largest position difference."""
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch import DroneState, Trajectory
+    from dart_planner_tpu_torch.control import smoother as sm
+    from dart_planner_tpu_torch.estimation import ekf
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    config = mission["config"]
+    dpos = []
+    for prob, u0, use_obstacles, pos_k in mission["records"]:
+        before = cuda_mpc.LAUNCHES
+        plain = se3_mpc.solve(config, prob, u0, use_obstacles, method="torch")
+        check(cuda_mpc.LAUNCHES == before, "14c: the plain path launched B1")
+        dpos.append(float((pos_k - plain.positions).abs().max()))
+    check(max(dpos) <= 1e-3, f"14c: mission replans, positions max |kernel - plain| "
+          f"{max(dpos):.3g} m > 1e-3 ({[f'{d:.2g}' for d in dpos]})")
+
+    B, N = VEHICLE_FLEET, 20
+    rng = np.random.default_rng(0)
+    t_up = rng.uniform(0.0, 0.5, B).astype(np.float32)
+    ts = t_up[:, None] + np.float32(0.1) * np.arange(N, dtype=np.float32)
+    p0 = rng.normal(0, 2, (B, 1, 3)).astype(np.float32)
+    vel = np.broadcast_to(rng.normal(0, 1.5, (B, 1, 3)), (B, N, 3)).astype(np.float32)
+    pos = (p0 + (ts - t_up[:, None])[..., None] * vel).astype(np.float32)
+    acc = np.zeros((B, N, 3), np.float32)
+    jump = pos + rng.normal(0, 1.0, (B, 1, 3)).astype(np.float32)  # a replan that jumps
+    drone = rng.normal(0, 2, (B, 3)).astype(np.float32)
+    cfg = sm.SmootherConfig()
+
+    def smoother_run(device):
+        def t(x):
+            return torch.as_tensor(x, device=device)
+
+        st = sm.SmootherState.zeros(N, (B,), device=device)
+        st = sm.update_trajectory(cfg, st, Trajectory(t(ts), t(pos), t(vel), t(acc)), t(t_up))
+        d = DroneState.zeros((B,), device=device).replace(position=t(drone))
+        outs = []
+        for k, dt in enumerate((0.0, 0.0025, 0.0025, 0.01, 0.2, 0.21, 0.6, 3.5)):
+            if k == 4:  # the fleet replans with jumps: min-jerk transitions
+                st = sm.update_trajectory(cfg, st, Trajectory(t(ts + 0.2), t(jump), t(vel),
+                                                              t(acc)), t(t_up + 0.2))
+            (p, v, a), st = sm.get_desired_state(cfg, st, t(t_up + 0.5 + dt), d)
+            outs += [p, v, a]
+        return [x.cpu() for x in outs] + [st.in_transition.cpu()]
+
+    gpu, cpu = smoother_run(dev), smoother_run("cpu")
+    check(bool((gpu[-1] == cpu[-1]).all()), "14c: smoother transition flags differ")
+    err_sm = max(float((g - c).abs().max()) for g, c in zip(gpu[:-1], cpu[:-1]))
+    check(err_sm <= 1e-4, f"14c: smoother B={B} card vs CPU max |diff| {err_sm:.3g} > 1e-4")
+
+    ecfg = ekf.EKFConfig()
+    accel = rng.normal(0, 1, (40, B, 3)).astype(np.float32)
+    meas = rng.normal(0, 1, (40, B, 3)).astype(np.float32)
+    p_init = rng.normal(0, 1, (B, 3)).astype(np.float32)
+
+    def ekf_run(device):
+        st = ekf.ekf_init(torch.as_tensor(p_init, device=device))
+        for k in range(40):
+            st = ekf.ekf_predict(ecfg, st, torch.as_tensor(accel[k], device=device), 0.01)
+            z = torch.as_tensor(meas[k], device=device)
+            st = (ekf.ekf_update_position if k % 2 else ekf.ekf_update_velocity)(ecfg, st, z)
+        return st.x.cpu(), st.P.cpu()
+
+    (xg, Pg), (xc, Pc) = ekf_run(dev), ekf_run("cpu")
+    err_x = float((xg - xc).abs().max())
+    err_P = float(((Pg - Pc).abs() / (Pc.abs() + 1e-6)).max())
+    check(err_x <= 1e-4 and err_P <= 1e-3,
+          f"14c: EKF fleet B={B} card vs CPU: x {err_x:.3g} (1e-4), P rel {err_P:.3g} (1e-3)")
+    print(f"[14c parity] ({card}) B1 on the mission's first {len(dpos)} replans vs "
+          f"method='torch' on the same problems and warm starts: positions max |diff| "
+          f"{max(dpos):.3g} m (1e-3); smoother B={B} (8 calls, a jumping replan) card vs CPU "
+          f"max |diff| {err_sm:.3g} (1e-4); EKF fleet B={B}, 40 predict/update steps, card vs "
+          f"CPU: x {err_x:.3g} (1e-4), P rel {err_P:.3g} (1e-3)", flush=True)
+    return max(dpos)
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -1428,6 +1920,10 @@ def run(baseline_source=None) -> dict:
     scen = scenarios_phase(dev, card)
     sweep = sweep_phase(dev, card)
     fig_launches = scen["launches"]["figure8"]
+    # -- 14. the three-layer mission stack: hardware mission, three-layer loop
+    mission = mission_phase(dev, card)
+    layers = three_layer_phase(dev, card, mission["per_plan"])
+    dpos_mission = vehicle_parity_phase(dev, card, mission)
 
     replans = mc_config().num_replans
     return {
@@ -1441,9 +1937,13 @@ def run(baseline_source=None) -> dict:
                 "launches_by_path": {"closed_loop": mc["launches"]["B1"],
                                      "solve": b1["launches"], "fleet": fleet["launches"],
                                      "figure8": fig_launches["B1"],
-                                     "sweep": sweep["launches"]["B1"]},
+                                     "sweep": sweep["launches"]["B1"],
+                                     "mission": mission["launches"],
+                                     "three_layer": layers["launches"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
-                                       "closed_loop_replan": mc["launches"]["B1"] / replans},
+                                       "closed_loop_replan": mc["launches"]["B1"] / replans,
+                                       "mission_replan": mission["per_plan"]},
+                "mission_max_abs_err_m": dpos_mission,
                 "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"]),
                 "ms": b1["ms"],
                 "device_ms": b1["device_ms"],
@@ -1483,6 +1983,7 @@ def main() -> int:
     parser.add_argument("--baseline", help="an earlier csrc/tick_block.cu with the same "
                         "C interface, to time turn by turn beside kernel B2 (phase 10)")
     args = parser.parse_args()
+    t0 = time.perf_counter()
     try:
         record = run(args.baseline)
     except SmokeFailure as e:
@@ -1490,6 +1991,8 @@ def main() -> int:
         return 1
     import torch
 
+    print(f"[total] {time.perf_counter() - t0:.1f} s (host clock, the build included)",
+          flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,24 +1,32 @@
-"""DART-Planner on PyTorch and CUDA: the SE(3) MPC solve and the closed-loop
-Monte-Carlo for NVIDIA Hopper.
+"""DART-Planner on PyTorch and CUDA: the SE(3) MPC solve, the closed-loop
+Monte-Carlo and the three-layer mission stack for NVIDIA Hopper.
 
 A port of :mod:`dart_planner_tpu` (the JAX/Pallas package, which stays the
 reference) with the same module layout:
 
-- ``common/``     types, frames, errors, the default device, runtime metrics
+- ``common/``     types, frames, errors, the default device, runtime
+  metrics, logging and the vector PID
 - ``ops/``        condensed dynamics, cost model, SO(3) operators, and the
   hand-written CUDA kernels: the solver (``ops/cuda_mpc.py`` over
   ``csrc/mpc_solve.cu``) and the closed-loop tick block
   (``ops/cuda_rollout.py`` over ``csrc/tick_block.cu``)
 - ``planning/``   the batched two-phase projected-Newton solve, planner
-  facade and registry
-- ``control/``    the geometric SE(3) controller
+  facade and registry (L2), and the global mission planner (L1)
+- ``control/``    the geometric SE(3) controller, the trajectory smoother
+  and the onboard PID fallback (L3)
 - ``sim/``        rigid-body physics, closed-loop episodes, obstacle worlds,
   the BASELINE scenario library and the resumable Monte-Carlo sweep
 - ``parallel/``   the scenario fleet over a grid of devices and processes
   (``torch.distributed``)
 - ``perception/`` the log-odds voxel mapper
-- ``runtime/``    the planner-to-actuator fast path and the C++ RT executor
-  bindings
+- ``neural_scene/`` the placeholder scene grids and the exploration
+  uncertainty field
+- ``estimation/`` the batched EKF and the estimator adapters
+- ``security/``   input validation
+- ``hardware/``   the vehicle I/O, the simulated vehicle, the motor model
+  and mixer, and the mission runner
+- ``runtime/``    the planner-to-actuator fast path, the C++ RT executor
+  bindings, the asyncio scheduler and the real-time integration layer
 
 ``planning.se3_mpc.solve(..., method="auto")`` and
 ``sim.closed_loop.simulate_episode(..., method="auto")`` run the CUDA

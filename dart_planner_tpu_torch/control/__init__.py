@@ -1,6 +1,5 @@
-"""Geometric SE(3) control and its tuning profiles (PyTorch counterpart of
-:mod:`dart_planner_tpu.control`; the smoother and the onboard controller are
-not ported yet)."""
+"""L3 geometric SE(3) control, tuning profiles, trajectory smoothing and the
+onboard PID fallback (PyTorch counterpart of :mod:`dart_planner_tpu.control`)."""
 
 from dart_planner_tpu_torch.control.geometric import (
     ControllerState,
@@ -8,6 +7,7 @@ from dart_planner_tpu_torch.control.geometric import (
     GeometricController,
     compute_control,
 )
+from dart_planner_tpu_torch.control.onboard import OnboardController
 from dart_planner_tpu_torch.control.tuning_profiles import (
     add_custom_profile,
     get_controller_config,
@@ -19,6 +19,7 @@ __all__ = [
     "ControllerState",
     "GeometricConfig",
     "GeometricController",
+    "OnboardController",
     "compute_control",
     "add_custom_profile",
     "get_controller_config",

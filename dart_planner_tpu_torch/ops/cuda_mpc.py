@@ -26,7 +26,6 @@ import math
 import numpy as np
 import torch
 
-from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.ops import _build, costs, dynamics
 
 SOURCE = "dart_planner_tpu_torch/csrc/mpc_solve.cu"
@@ -153,9 +152,7 @@ def solve_thrusts_plain(config, prob: costs.Problem, u_init: torch.Tensor,
     if not use_obstacles:
         prob = se3_mpc._strip_obstacles(prob)
     u, min_improvement = se3_mpc._newton_iterate(config, prob, u_init, use_obstacles)
-    gvec = frames.gravity_vector(
-        frames.WorldFrame.ENU, config.gravity, dtype=u.dtype, device=u.device
-    )
+    gvec = se3_mpc._gravity(config, u.dtype, u.device)
     pos, vel, _ = dynamics.rollout_linear(
         u, prob.p0, prob.v0, config.dt, config.mass, gvec
     )
@@ -218,14 +215,18 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
         lib = _library()
         params = _params(config, B, K, use_obstacles)
         consts = _constants(config, str(device))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mpc_solve_launch(
-            ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
-            p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
-            mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
-            u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
-            imp_out.data_ptr(), cost_out.data_ptr(), stream,
-        )
+        # the tensors' card is made current for the launch: the runtime
+        # launches on the current device, and the kernel's shared-memory
+        # attribute is set per device
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.mpc_solve_launch(
+                ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
+                p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
+                mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
+                u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
+                imp_out.data_ptr(), cost_out.data_ptr(), stream,
+            )
         if err != 0:
             raise RuntimeError(
                 f"mpc_solve launch failed: CUDA error {err} "

@@ -545,13 +545,15 @@ def launch_tick_block(
     acc = torch.empty((ACC_ROWS, B), dtype=torch.float32, device=device)
     if B > 0:
         params = _launch_params(control_cfg, physics_cfg, control_dt, T, substeps, B, K)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tick_block_launch(
-            ctypes.byref(params), state_rows.data_ptr(), sp_pos.data_ptr(),
-            sp_vel.data_ptr(), sp_acc.data_ptr(), goal_wind.data_ptr(),
-            None if K == 0 else obstacle_rows.data_ptr(), out.data_ptr(),
-            acc.data_ptr(), stream,
-        )
+        # launched with the tensors' card current (see ops/cuda_mpc.py)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.tick_block_launch(
+                ctypes.byref(params), state_rows.data_ptr(), sp_pos.data_ptr(),
+                sp_vel.data_ptr(), sp_acc.data_ptr(), goal_wind.data_ptr(),
+                None if K == 0 else obstacle_rows.data_ptr(), out.data_ptr(),
+                acc.data_ptr(), stream,
+            )
         if err != 0:
             raise RuntimeError(
                 f"tick_block launch failed: CUDA error {err} "

@@ -21,6 +21,7 @@ launches it as real processes on gloo.
 from __future__ import annotations
 
 import datetime
+import os
 import time
 from typing import Optional, Sequence
 
@@ -39,25 +40,40 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> None:
     """Join the process group (idempotent).
 
     ``coordinator_address`` is ``host:port`` of process 0, reached over
     ``tcp://``; with no arguments the standard ``MASTER_ADDR``/``RANK``/
     ``WORLD_SIZE`` environment is read. ``backend`` defaults to NCCL when a
-    card is visible (this process's current CUDA device is pinned first)
-    and gloo otherwise."""
+    card is visible and gloo otherwise. An NCCL process is pinned first to
+    ``device``, by default the card of its local rank (:func:`local_rank`),
+    so two processes on one host never share a card."""
     if dist.is_initialized():
         return
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(torch.cuda.current_device())
+        if device is None:
+            device = local_rank(process_id) % torch.cuda.device_count()
+        torch.cuda.set_device(device)
     kw = dict(backend=backend, timeout=TIMEOUT)
     if coordinator_address is not None:
         kw.update(init_method=f"tcp://{coordinator_address}",
                   world_size=num_processes, rank=process_id)
     dist.init_process_group(**kw)
+
+
+def local_rank(process_id: Optional[int] = None) -> int:
+    """This process's rank on its host: ``LOCAL_RANK`` where a launcher set
+    it, else its global rank (``process_id``, else ``RANK``, else 0), which
+    is the local rank when every process runs on one host."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    if process_id is not None:
+        return process_id
+    return int(os.environ.get("RANK", 0))
 
 
 def shutdown() -> None:

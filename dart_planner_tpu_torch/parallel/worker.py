@@ -68,11 +68,19 @@ def main(argv=None) -> dict:
     from dart_planner_tpu_torch.planning import se3_mpc
 
     if args.backend == "nccl":
-        local = [torch.device("cuda", i) for i in range(args.local_devices)]
+        # each process its own cards: local rank r holds cards r*n .. r*n+n-1
+        first = distributed.local_rank(args.process_id) * args.local_devices
+        if first + args.local_devices > torch.cuda.device_count():
+            raise RuntimeError(
+                f"process {args.process_id} needs cards {first}..."
+                f"{first + args.local_devices - 1}, {torch.cuda.device_count()} visible"
+            )
+        local = [torch.device("cuda", first + i) for i in range(args.local_devices)]
     else:
         local = [torch.device("cpu")] * args.local_devices
     distributed.initialize(args.coordinator, args.num_processes, args.process_id,
-                           backend=args.backend)
+                           backend=args.backend,
+                           device=local[0] if args.backend == "nccl" else None)
     try:
         world = torch.distributed.get_world_size()
         if world != args.num_processes:

@@ -1,4 +1,5 @@
-"""Trajectory planning: the SE(3) MPC solve and planner facade."""
+"""Trajectory planning: the SE(3) MPC solve and planner facade (L2), and
+global mission planning (L1, ``planning.global_mission``)."""
 
 from dart_planner_tpu_torch.planning.base import BasePlanner, PlannerFactory
 from dart_planner_tpu_torch.planning.se3_mpc import (

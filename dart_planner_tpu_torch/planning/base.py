@@ -12,19 +12,12 @@ import abc
 from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
-import torch
 
+from dart_planner_tpu_torch.common.device import to_host
 from dart_planner_tpu_torch.common.errors import PlanningError
 from dart_planner_tpu_torch.common.types import DroneState, Trajectory
 
 _MAX_STAT_SAMPLES = 100  # reference base_planner.py:103
-
-
-def _host(x) -> np.ndarray:
-    """float64 numpy copy of a tensor on any device (or array-like)."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().double().numpy()
-    return np.asarray(x, np.float64)
 
 
 class BasePlanner(abc.ABC):
@@ -68,8 +61,8 @@ class BasePlanner(abc.ABC):
     def validate_state(self, state: Optional[DroneState]) -> bool:
         if state is None:
             return False
-        pos = _host(state.position)
-        vel = _host(state.velocity)
+        pos = to_host(state.position)
+        vel = to_host(state.velocity)
         if not np.all(np.isfinite(pos)):
             return False
         return bool(np.all(np.abs(vel) <= 20.0))  # 20 m/s envelope

@@ -802,6 +802,8 @@ class SE3MPCPlanner(BasePlanner):
         self.goal_position: Optional[np.ndarray] = None
         self.last_solution: Optional[Tensor] = None
         self.warm_start_enabled = True
+        # replans answered with the hover fallback (an invalid plan)
+        self.emergency_plans = 0
 
     def set_goal(self, goal_position) -> None:
         self.goal_position = np.asarray(goal_position, np.float32)
@@ -852,6 +854,7 @@ class SE3MPCPlanner(BasePlanner):
             success=bool(result.converged.all()),
         )
         if not bool(is_plan_valid(traj).all()):
+            self.emergency_plans += 1
             return emergency_trajectory(
                 self.config,
                 state.replace(
@@ -870,7 +873,9 @@ class SE3MPCPlanner(BasePlanner):
             "max_planning_time_ms": float(np.max(st["planning_times"])),
             "success_rate": st["successful_plans"] / max(st["total_plans"], 1),
             "total_plans": st["total_plans"],
+            "emergency_plans": self.emergency_plans,
         }
 
     def reset_performance_tracking(self) -> None:
         self.reset_stats()
+        self.emergency_plans = 0

@@ -34,7 +34,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(num_processes, local_devices, batch, extra=(), timeout=120):
+def _launch(num_processes, local_devices, batch, extra=(), timeout=120, backend="gloo"):
     """Run the worker ``num_processes`` times; return process 0's RESULT."""
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -43,7 +43,7 @@ def _launch(num_processes, local_devices, batch, extra=(), timeout=120):
             [sys.executable, "-m", "dart_planner_tpu_torch.parallel.worker",
              "--coordinator", f"localhost:{port}",
              "--num-processes", str(num_processes), "--process-id", str(i),
-             "--backend", "gloo", "--local-devices", str(local_devices),
+             "--backend", backend, "--local-devices", str(local_devices),
              "--global-batch", str(batch), *extra],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT,
         )
