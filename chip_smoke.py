@@ -38,7 +38,18 @@ CUDA events, the control task's achieved rate and overruns, the device's
 idle share, 14a), the three-layer loop of L1 goals, L2 plans, the smoother
 and the real-time executor (14b), and B1 on the mission's first replans
 against the plain path, the batched smoother and the EKF fleet on the card
-against the CPU (14c). Phases 7
+against the CPU (14c); and the edge<->cloud deployment (phase 15): the
+cloud's ``main`` in a process of its own on the card (``SE3MPCConfig()``,
+the 128x128x64 voxel map, 360-ray lidar, the demo mission; every plan
+through B1) serving the edge, flown in this process at ``EdgeConfig()``
+(200 Hz control, 10 Hz comms) over ZMQ on tcp loopback, or, without
+pyzmq, both in this process linked by an in-process pair that carries the
+signed bytes through the port's request handling (plan and tick times by
+CUDA events, round trips on the host clock, the control task's achieved
+rate, the idle share, 15a); the onboard fallback through NOMINAL,
+DEGRADED and AUTONOMOUS with its replans through B1, and the minimal
+takeoff (15b); and B1 on the cloud's first plans against the plain path
+(15c). Phases 7
 and 10 time the kernels against their plain versions with CUDA events, and
 the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -1851,6 +1862,495 @@ def vehicle_parity_phase(dev, card: str, mission: dict) -> float:
     return max(dpos)
 
 
+DEPLOY_FIELDS = ("timestamps", "positions", "velocities", "accelerations")
+EDGE_FLIGHT_S = 10.0  # the edge's flight, s of wall
+EDGE_TRACE_S = 2.0  # the last seconds of that flight, traced for the idle share
+CLOUD_START_S = 120.0  # for the cloud's process to answer its first request
+CLOUD_MAX_S = 900.0  # the cloud's own duration, if nothing stops it first
+CLOUD_PARITY_PLANS = 5
+ONBOARD_GOAL, ONBOARD_OBSTACLE = (4.0, 1.0, 3.0), ((3.0, -2.0, 2.5), 0.5)
+
+
+def _traj_digest(out: dict) -> str:
+    """The sha256 (16 hex digits) of a served plan's four arrays as float32
+    bytes: equal digests mean equal plans, bit for bit."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for name in DEPLOY_FIELDS:
+        h.update(np.ascontiguousarray(out[name], np.float32).tobytes())
+    return h.hexdigest()[:16]
+
+
+def in_process_pair(key: str):
+    """A REQ/REP pair without a socket: the port's ``RequestHandler`` as the
+    server, and a ``RequestClient`` whose exchange hands the request's signed
+    bytes to the handler on the caller's thread and returns the reply's signed
+    bytes. Each side signs and verifies with its own ``SecureSerializer``
+    under ``key``. Phase 15a links the cloud and the edge through it where
+    pyzmq is missing."""
+    from dart_planner_tpu_torch.comms import SecureSerializer
+    from dart_planner_tpu_torch.comms.zmq_transport import RequestClient, RequestHandler
+
+    server = RequestHandler(SecureSerializer(secret_key=key))
+
+    class InProcessClient(RequestClient):
+        def _exchange(self, command, payload):
+            return server.handle(payload)
+
+    return server, InProcessClient(SecureSerializer(secret_key=key))
+
+
+def _instrument_cloud() -> tuple:
+    """Instruments the port's cloud for phase 15: CUDA events around each
+    ``plan_once`` that plans, the digest of each plan served, and the first
+    CLOUD_PARITY_PLANS solves (config, problem, warm start, obstacles flag,
+    positions) for 15c. Patches the controller class (so the handlers a new
+    controller binds are the recording ones) and ``se3_mpc.solve``; returns
+    the record and a function that undoes the patches."""
+    import torch
+
+    from dart_planner_tpu_torch.apps import cloud
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    rec = {"pairs": [], "served": [], "solves": [], "controller": None}
+    cls = cloud.ThreeLayerCloudController
+    plan_once, get, solve = cls.plan_once, cls._handle_get_trajectory, se3_mpc.solve
+
+    def timed_plan_once(self):
+        rec["controller"] = self
+        if self.last_state is None:
+            return plan_once(self)
+        start = _event_pair()
+        plan_once(self)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        rec["pairs"].append((start, end))
+
+    def recording_get(self, data):
+        out = get(self, data)
+        if out["available"]:
+            rec["served"].append(_traj_digest(out))
+        return out
+
+    def recording_solve(cfg, prob, u_init=None, use_obstacles=True, method="auto"):
+        res = solve(cfg, prob, u_init, use_obstacles, method)
+        if len(rec["solves"]) < CLOUD_PARITY_PLANS:
+            rec["solves"].append((cfg, prob, None if u_init is None else u_init.clone(),
+                                  use_obstacles, res.positions.clone()))
+        return res
+
+    cls.plan_once, cls._handle_get_trajectory = timed_plan_once, recording_get
+    se3_mpc.solve = recording_solve
+
+    def restore():
+        cls.plan_once, cls._handle_get_trajectory = plan_once, get
+        se3_mpc.solve = solve
+
+    return rec, restore
+
+
+def _cloud_summary(rec: dict, launches: int) -> dict:
+    """The instrumented cloud's record once it has stopped: plans, B1
+    launches, plan ms by CUDA events, the digests served, and (15c) its
+    first plans' B1 solves against the plain path on the same problems and
+    warm starts (max |positions difference| a plan, m)."""
+    import numpy as np
+
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    ms = _elapsed(rec["pairs"])
+    dpos = []
+    for cfg, prob, u0, use_obstacles, pos in rec["solves"]:
+        plain = se3_mpc.solve(cfg, prob, u0, use_obstacles, method="torch")
+        dpos.append(float((pos - plain.positions).abs().max()))
+    ctl = rec["controller"]
+    return {"plans": ctl.plan_count if ctl else 0, "launches": launches,
+            "plain_launches": cuda_mpc.LAUNCHES - launches,
+            "plan_ms": [float(np.percentile(ms, q)) for q in (50, 95)] + [max(ms)] if ms else [],
+            "served": rec["served"], "parity_m": dpos}
+
+
+def serve_cloud(port: int) -> None:
+    """Phase 15a's cloud in a process of its own, as deployed: the port's
+    ``apps.cloud.main`` (the demo mission, ``SE3MPCConfig()``, the card) on
+    ``port``, its secret from ``DART_ZMQ_SECRET``, instrumented by
+    :func:`_instrument_cloud`, until SIGTERM stops its planning loop. Then
+    prints :func:`_cloud_summary`'s record as one JSON line."""
+    import asyncio
+    import signal
+
+    from dart_planner_tpu_torch.apps import cloud
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    rec, restore = _instrument_cloud()
+
+    def stop(signum, frame):
+        if rec["controller"] is not None:
+            rec["controller"].stop()
+
+    signal.signal(signal.SIGTERM, stop)
+    asyncio.run(cloud.main(port=port, duration=CLOUD_MAX_S))
+    restore()
+    print(json.dumps(_cloud_summary(rec, cuda_mpc.LAUNCHES)), flush=True)
+
+
+class _EdgeTicks:
+    """Wraps the edge vehicle's ``step`` with CUDA events around each tick,
+    and traces the device (torch.profiler, device activity only) from the
+    first tick after ``trace_from`` (host clock) to the end of the flight;
+    :meth:`summary` processes the trace after the flight."""
+
+    def __init__(self, step):
+        self.step, self.pairs, self.prof = step, [], None
+        self.trace_from, self.t0, self.enter_ms = float("inf"), 0.0, 0.0
+
+    def __call__(self, dt=None):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.prof is None and time.perf_counter() >= self.trace_from:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+            self.enter_ms = (self.t0 - t) * 1e3
+        start = _event_pair()
+        out = self.step(dt)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.pairs.append((start, end))
+        return out
+
+    def summary(self, t1: float) -> dict:
+        """The traced window's device time, the window ending at ``t1``
+        (host clock, the flight's end)."""
+        check(self.prof is not None, "edge: the flight ended before its traced window")
+        self.prof.__exit__(None, None, None)
+        return {**profile_summary(self.prof, t1 - self.t0), "enter_ms": self.enter_ms}
+
+
+def _fly_edge(dev, key: str, port: int, client=None) -> dict:
+    """The port's ``EdgeController`` at ``EdgeConfig()`` (200 Hz control,
+    10 Hz comms) with the JAX test's generous tier windows, flown from
+    (0, 0, 2) for EDGE_FLIGHT_S of wall against the cloud on ``port`` (or
+    through ``client``), with the launch counts set to 0 just before and
+    read just after: each request's round trip on the host clock, each
+    tick by CUDA events, the digest of each plan received, and the last
+    EDGE_TRACE_S traced for the device's idle share."""
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dart_planner_tpu_torch.apps.edge import EdgeConfig, EdgeController
+    from dart_planner_tpu_torch.common.errors import CommunicationError
+    from dart_planner_tpu_torch.comms import SecureSerializer
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+
+    edge = EdgeController(
+        EdgeConfig(cloud_port=port, degraded_after_s=2.0, autonomous_after_s=30.0,
+                   emergency_after_s=120.0),
+        serializer=SecureSerializer(secret_key=key), client=client)
+    check(edge.vehicle.device == dev, f"edge: the vehicle is on {edge.vehicle.device}")
+    edge.vehicle.rb = edge.vehicle.rb.replace(
+        position=torch.tensor([0.0, 0.0, 2.0], device=dev))
+    edge.vehicle.step()  # the tests' warm-up tick, outside the flight
+    rt_ms, received, failed = [], [], []
+    send = edge.client.send_request
+
+    def timed_request(command, data=None):
+        t0 = time.perf_counter()
+        try:
+            out = send(command, data)
+        except CommunicationError as e:
+            failed.append(str(e))
+            raise
+        rt_ms.append((time.perf_counter() - t0) * 1e3)
+        if command == "get_trajectory" and out.get("available"):
+            received.append(_traj_digest(out))
+        return out
+
+    edge.client.send_request = timed_request
+    ticks = _EdgeTicks(edge.vehicle.step)
+    edge.vehicle.step = ticks
+    with profile(activities=[ProfilerActivity.CUDA]):  # the tracer's set-up, off the flight
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+    t0 = time.perf_counter()
+    ticks.trace_from = t0 + EDGE_FLIGHT_S - EDGE_TRACE_S
+    try:
+        stats = asyncio.run(edge.run(duration=EDGE_FLIGHT_S))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prof = ticks.summary(t1)
+    finally:
+        edge.stop()
+    wall = t1 - t0
+    return {"stats": stats, "wall": wall, "rt_ms": rt_ms, "received": received,
+            "failed": failed, "tick_ms": _elapsed(ticks.pairs), "prof": prof,
+            "rejected": edge.rejected_trajectories, "sim_time": edge.vehicle.sim_time,
+            "launches": {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}}
+
+
+def _deploy_over_zmq(dev, key: str) -> tuple:
+    """15a with pyzmq: the cloud's ``main`` in a process of its own on the
+    card (:func:`serve_cloud`), waited for until it answers, then the edge
+    flown in this process over tcp loopback; the cloud stopped by SIGTERM
+    and its record read from its output. Returns (cloud record, edge
+    record, transport)."""
+    import os
+    import signal
+    import tempfile
+
+    from dart_planner_tpu_torch.common.errors import CommunicationError
+    from dart_planner_tpu_torch.comms import SecureSerializer, ZmqClient
+
+    port = _free_port()
+
+    def tail(f, n=2000) -> str:
+        f.seek(0)
+        return f.read().decode(errors="replace")[-n:]
+
+    with tempfile.TemporaryFile() as out, tempfile.TemporaryFile() as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.serve_cloud({port})"],
+            cwd=pathlib.Path(__file__).resolve().parent, stdout=out, stderr=err,
+            env={**os.environ, "DART_ZMQ_SECRET": key})
+        try:
+            probe = ZmqClient(port=port, timeout_ms=1000,
+                              serializer=SecureSerializer(secret_key=key))
+            t0 = time.perf_counter()
+            try:
+                while True:
+                    check(proc.poll() is None, f"cloud: the process exited "
+                          f"({proc.returncode}) before it answered: {tail(err)}")
+                    try:
+                        probe.send_request("status")
+                        break
+                    except CommunicationError:
+                        check(time.perf_counter() - t0 < CLOUD_START_S,
+                              f"cloud: no answer in {CLOUD_START_S:.0f} s: {tail(err)}")
+            finally:
+                probe.close()
+            started = time.perf_counter() - t0
+            edge = _fly_edge(dev, key, port)
+            check(proc.poll() is None, f"cloud: the process died during the flight "
+                  f"({proc.returncode}): {tail(err)}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines = tail(out, 10**7).strip().splitlines()
+        check(rc == 0 and lines, f"cloud: exit code {rc}, stderr: {tail(err)}")
+    cloud = json.loads(lines[-1])
+    return cloud, edge, (f"ZMQ REQ/REP over tcp loopback, the cloud's process answering "
+                         f"{started:.1f} s after its start")
+
+
+def _deploy_in_process(dev, key: str) -> tuple:
+    """15a without pyzmq: the cloud (``ThreeLayerCloudController`` on the
+    card, the demo mission) plans on a thread of this process and the edge
+    flies here, linked by :func:`in_process_pair`. Returns (cloud record,
+    edge record, transport)."""
+    import asyncio
+    import threading
+
+    from dart_planner_tpu_torch.apps.cloud import ThreeLayerCloudController
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    server, client = in_process_pair(key)
+    rec, restore = _instrument_cloud()
+    try:
+        ctl = ThreeLayerCloudController(server=server)
+        ctl.initialize_demo_mission()
+        thread = threading.Thread(target=asyncio.run,
+                                  args=(ctl.run_planning_loop(CLOUD_MAX_S),), daemon=True)
+        thread.start()
+        try:
+            edge = _fly_edge(dev, key, 0, client=client)
+        finally:
+            ctl.stop()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "cloud: the planning thread did not stop")
+        # the edge itself launches no kernel: this process's B1 launches
+        # since the flight began are the cloud's
+        cloud = _cloud_summary(rec, cuda_mpc.LAUNCHES)
+    finally:
+        restore()
+    edge["launches"] = {"B1": 0, "B2": edge["launches"]["B2"]}
+    return cloud, edge, "in-process (no pyzmq on this machine)"
+
+
+def deployment_phase(dev, card: str) -> dict:
+    """Phases 15a and 15c: the edge<->cloud deployment on the card at full
+    width. The cloud (``SE3MPCConfig()``: N=20, K=8; the 128x128x64 voxel
+    map, 360-ray lidar, the JAX demo mission) serves plans at 10 Hz; the
+    edge flies them at ``EdgeConfig()``. Over ZMQ with the cloud in a
+    process of its own where pyzmq is installed, else in one process
+    through :func:`in_process_pair`. 15c: B1 on the cloud's first plans
+    against the plain path."""
+    import secrets
+
+    import numpy as np
+
+    from dart_planner_tpu_torch.apps.edge import FailsafeTier
+
+    t_phase = time.perf_counter()
+    key = secrets.token_urlsafe(16)
+    try:
+        import zmq  # noqa: F401
+    except ImportError:
+        cloud, edge, transport = _deploy_in_process(dev, key)
+    else:
+        cloud, edge, transport = _deploy_over_zmq(dev, key)
+    stats, plans = edge["stats"], cloud["plans"]
+    ctl = stats["scheduler"]["tasks"]["control"]
+    z = float(stats["final_position"][2])
+    check(stats["tier"] in (FailsafeTier.NOMINAL.value, FailsafeTier.DEGRADED.value),
+          f"edge: ended {stats['tier']}")
+    check(stats["ticks"] > 100, f"edge: {stats['ticks']} ticks")
+    check(z > 2.3, f"edge: final z {z:.3f} m (the takeoff goal is 5 m)")
+    check(edge["rejected"] == 0, f"edge: {edge['rejected']} rejected trajectories")
+    check(plans > 0 and cloud["launches"] == 2 * plans,
+          f"cloud: {cloud['launches']} launches of B1 for {plans} plans, not 2 a plan")
+    check(edge["launches"] == {"B1": 0, "B2": 0}, f"edge: launches {edge['launches']}")
+    check(edge["received"] and edge["received"][-1] in cloud["served"],
+          f"edge: its last plan ({edge['received'][-1:]}) is none the cloud served")
+    check(cloud["plain_launches"] == 0, "15c: the plain path launched B1")
+    check(len(cloud["parity_m"]) == CLOUD_PARITY_PLANS,
+          f"15c: {len(cloud['parity_m'])} cloud plans recorded")
+    worst = max(cloud["parity_m"])
+    check(worst <= 1e-3, f"15c: the cloud's plans, positions max |kernel - plain| {worst:.3g} m "
+          f"> 1e-3 ({[f'{d:.2g}' for d in cloud['parity_m']]})")
+    rt, tick = edge["rt_ms"], edge["tick_ms"]
+    print(f"[15a deployment] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock) with "
+          f"15c; transport={transport}; cloud ThreeLayerCloudController on "
+          f"{dev} (SE3MPCConfig(), the 128x128x64 map, 360-ray lidar, the demo mission): {plans} "
+          f"plans, B1 launches {cloud['launches']} (2 a plan), plan (CUDA events around "
+          f"plan_once) p50 {cloud['plan_ms'][0]:.3f} p95 {cloud['plan_ms'][1]:.3f} max "
+          f"{cloud['plan_ms'][2]:.3f} ms; edge EdgeController (EdgeConfig(): 200 Hz control, "
+          f"10 Hz comms) on {dev}, {edge['wall']:.3f} s of wall for {edge['sim_time']:.3f} s of "
+          f"the vehicle's clock: tier {stats['tier']}, {stats['ticks']} ticks, final z {z:.3f} m, "
+          f"{len(edge['received'])} plans received, 0 rejected, the last equal bit for bit to "
+          f"one the cloud served ({edge['received'][-1]}), {len(edge['failed'])} requests failed "
+          f"(of {len(rt) + len(edge['failed'])}); round trip (host clock, a request) "
+          f"{_pcts(rt)}; edge tick (CUDA events around step) {_pcts(tick)}; control task "
+          f"{ctl['execution_count']} ticks at {ctl.get('achieved_frequency_hz', 0.0):.1f} Hz "
+          f"achieved of 200, {ctl['overruns']} overruns, {ctl['missed_deadlines']} missed "
+          f"deadlines; edge launches {edge['launches']}; device idle share "
+          f"{edge['prof']['idle']:.4f} over the flight's end ({edge['prof']['busy'] * 1e3:.3f} "
+          f"ms busy of {edge['prof']['wall'] * 1e3:.3f} ms traced from {EDGE_TRACE_S:.0f} s "
+          f"before it, the tracer's start taking {edge['prof']['enter_ms']:.1f} ms in a tick; "
+          f"torch.profiler, device activity of this process; top "
+          f"{edge['prof']['top'][:3]})", flush=True)
+    print(f"[15c parity] ({card}) B1 on the cloud's first {len(cloud['parity_m'])} plans vs "
+          f"method='torch' on the same problems and warm starts: positions max |diff| "
+          f"{worst:.3g} m (1e-3)", flush=True)
+    return {"launches": cloud["launches"], "plans": plans, "parity_m": worst,
+            "plan_ms": cloud["plan_ms"], "rt_ms": [float(np.percentile(rt, q)) for q in (50, 95)],
+            "tick_ms": [float(np.percentile(tick, q)) for q in (50, 95)],
+            "control_hz": ctl.get("achieved_frequency_hz", 0.0), "idle": edge["prof"]["idle"],
+            "transport": transport}
+
+
+def onboard_phase(dev, card: str) -> dict:
+    """Phase 15b: the edge's own fallback on the card. The port's
+    ``OnboardAutonomousController`` (its default planner, N=10, 6 rounds)
+    is handed states along a climb at 20 Hz with a cloud plan and good
+    link (NOMINAL), then a weak link and no plan (DEGRADED, the cached
+    plan), then none (AUTONOMOUS: replans through B1 every 0.5 s toward a
+    goal, a local sphere off the path), with the launch counts set to 0
+    just before and read just after; its first replan is held against the
+    plain path (1e-3 m, 14c's gate). Then ``minimal_takeoff`` on the card:
+    peak > 2.0 m, final < 1.5 m."""
+    import asyncio
+
+    import torch
+
+    from dart_planner_tpu_torch import DroneState, Trajectory
+    from dart_planner_tpu_torch.apps.autonomous import (
+        OnboardAutonomousController, OperationalMode)
+    from dart_planner_tpu_torch.apps.minimal_takeoff import minimal_takeoff
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    t_phase = time.perf_counter()
+    ctl = OnboardAutonomousController()  # the card by default
+    check(ctl.device == dev, f"onboard: the controller is on {ctl.device}")
+    ctl.set_goal(ONBOARD_GOAL)
+    ctl.add_local_obstacle(*ONBOARD_OBSTACLE)
+    n = 10
+    ts = 0.1 * torch.arange(n, device=dev)
+    cloud_plan = Trajectory(
+        timestamps=ts, positions=torch.stack([0.1 * ts, 0 * ts, 2.0 + 0.1 * ts], -1),
+        velocities=torch.zeros(n, 3, device=dev), accelerations=torch.zeros(n, 3, device=dev))
+    schedule = [(0.95, cloud_plan)] * 10 + [(0.5, None)] * 10 + [(0.0, None)] * 40
+    rec, modes, solve = [], [], se3_mpc.solve
+
+    def recording_solve(cfg, prob, u_init=None, use_obstacles=True, method="auto"):
+        res = solve(cfg, prob, u_init, use_obstacles, method)
+        if not rec:
+            rec.append((cfg, prob, None if u_init is None else u_init.clone(), use_obstacles,
+                        res.positions.clone()))
+        return res
+
+    torch.cuda.synchronize()
+    cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+    se3_mpc.solve = recording_solve
+    try:
+        t0 = time.perf_counter()
+        for k, (quality, plan) in enumerate(schedule):
+            t = 0.05 * k
+            st = DroneState.create(timestamp=t, position=(0.1 * t, 0.0, 2.0 + 0.1 * t),
+                                   velocity=(0.1, 0.0, 0.1), device=dev)
+            cmd = ctl.compute_control_command(st, plan, connection_quality=quality)
+            check(cmd.thrust.device == dev, f"onboard: a command on {cmd.thrust.device}")
+            if not modes or modes[-1] is not ctl.current_mode:
+                modes.append(ctl.current_mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        se3_mpc.solve = solve
+    launches = {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}
+    replans = ctl.get_system_status()["planner_stats"]["total_plans"]
+    expected = [OperationalMode.NOMINAL, OperationalMode.DEGRADED, OperationalMode.AUTONOMOUS]
+    check(modes == expected, f"onboard: modes {[m.value for m in modes]}")
+    check(replans > 0 and launches["B1"] > 0 and launches["B1"] % replans == 0
+          and launches["B2"] == 0,
+          f"onboard: launches {launches} for {replans} AUTONOMOUS replans")
+    cfg, prob, u0, use_obstacles, pos = rec[0]
+    before = cuda_mpc.LAUNCHES
+    plain = se3_mpc.solve(cfg, prob, u0, use_obstacles, method="torch")
+    check(cuda_mpc.LAUNCHES == before, "15b: the plain path launched B1")
+    dpos = float((pos - plain.positions).abs().max())
+    check(dpos <= 1e-3, f"15b: the first onboard replan, positions max |kernel - plain| "
+          f"{dpos:.3g} m > 1e-3")
+    t1 = time.perf_counter()
+    takeoff = asyncio.run(minimal_takeoff(altitude=3.0, hover_s=1.0))
+    t_takeoff = time.perf_counter() - t1
+    check(takeoff["peak_altitude"] > 2.0 and takeoff["final_altitude"] < 1.5,
+          f"minimal_takeoff: {takeoff}")
+    print(f"[15b onboard] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"OnboardAutonomousController on {dev} (N="
+          f"{cfg.prediction_horizon}, {cfg.max_iterations} rounds, a local sphere): modes "
+          f"{' -> '.join(m.value for m in modes)} over {len(schedule)} ticks in {wall:.3f} s "
+          f"(host clock); {replans} AUTONOMOUS replans, launches {launches} "
+          f"({launches['B1'] / replans:g} of B1 a replan); its first replan vs method='torch': "
+          f"positions max |diff| {dpos:.3g} m (1e-3); minimal_takeoff on {dev} (400 Hz ticks): "
+          f"peak {takeoff['peak_altitude']:.3f} m, hover {takeoff['hover_altitude']:.3f} m, "
+          f"final {takeoff['final_altitude']:.3f} m in {t_takeoff:.1f} s of wall", flush=True)
+    return {"launches": launches["B1"], "per_replan": launches["B1"] / replans,
+            "parity_m": dpos}
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -1924,6 +2424,9 @@ def run(baseline_source=None) -> dict:
     mission = mission_phase(dev, card)
     layers = three_layer_phase(dev, card, mission["per_plan"])
     dpos_mission = vehicle_parity_phase(dev, card, mission)
+    # -- 15. the edge<->cloud deployment and the edge's onboard fallback ------
+    deploy = deployment_phase(dev, card)
+    onboard = onboard_phase(dev, card)
 
     replans = mc_config().num_replans
     return {
@@ -1939,11 +2442,17 @@ def run(baseline_source=None) -> dict:
                                      "figure8": fig_launches["B1"],
                                      "sweep": sweep["launches"]["B1"],
                                      "mission": mission["launches"],
-                                     "three_layer": layers["launches"]},
+                                     "three_layer": layers["launches"],
+                                     "cloud": deploy["launches"],
+                                     "onboard": onboard["launches"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
-                                       "mission_replan": mission["per_plan"]},
+                                       "mission_replan": mission["per_plan"],
+                                       "cloud_replan": deploy["launches"] / deploy["plans"],
+                                       "onboard_replan": onboard["per_replan"]},
                 "mission_max_abs_err_m": dpos_mission,
+                "cloud_max_abs_err_m": deploy["parity_m"],
+                "onboard_max_abs_err_m": onboard["parity_m"],
                 "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"]),
                 "ms": b1["ms"],
                 "device_ms": b1["device_ms"],

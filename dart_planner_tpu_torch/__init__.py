@@ -1,11 +1,12 @@
 """DART-Planner on PyTorch and CUDA: the SE(3) MPC solve, the closed-loop
-Monte-Carlo and the three-layer mission stack for NVIDIA Hopper.
+Monte-Carlo, the three-layer mission stack and the edge<->cloud deployment
+for NVIDIA Hopper.
 
 A port of :mod:`dart_planner_tpu` (the JAX/Pallas package, which stays the
 reference) with the same module layout:
 
 - ``common/``     types, frames, errors, the default device, runtime
-  metrics, logging and the vector PID
+  metrics, logging, timing alignment and the vector PID
 - ``ops/``        condensed dynamics, cost model, SO(3) operators, and the
   hand-written CUDA kernels: the solver (``ops/cuda_mpc.py`` over
   ``csrc/mpc_solve.cu``) and the closed-loop tick block
@@ -27,6 +28,11 @@ reference) with the same module layout:
   and mixer, and the mission runner
 - ``runtime/``    the planner-to-actuator fast path, the C++ RT executor
   bindings, the asyncio scheduler and the real-time integration layer
+- ``comms/``      the edge<->cloud boundary: the signed serializer (the
+  JAX package's wire format), the ZMQ transport, the heartbeat and
+  telemetry compression
+- ``apps/``       the three-layer cloud, the edge control loop, the onboard
+  autonomous controller and the minimal takeoff
 
 ``planning.se3_mpc.solve(..., method="auto")`` and
 ``sim.closed_loop.simulate_episode(..., method="auto")`` run the CUDA

@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from dart_planner_tpu_torch.apps.edge import EdgeConfig
+from dart_planner_tpu_torch.comms.telemetry import CompressionType, TelemetryPacket
 from dart_planner_tpu_torch.control.geometric import GeometricConfig
 from dart_planner_tpu_torch.control.smoother import SmootherConfig, SmootherState
 from dart_planner_tpu_torch.estimation.ekf import EKFConfig, EKFState
@@ -25,6 +27,7 @@ from dart_planner_tpu_torch.ops.costs import Problem
 from dart_planner_tpu_torch.perception.mapper import MapperConfig
 from dart_planner_tpu_torch.planning.global_mission import GlobalMissionConfig
 from dart_planner_tpu_torch.planning.se3_mpc import SE3MPCConfig
+from dart_planner_tpu_torch.security.validation import SafetyLimits
 from dart_planner_tpu_torch.sim.closed_loop import ClosedLoopConfig
 from dart_planner_tpu_torch.sim.physics import PhysicsConfig
 from dart_planner_tpu_torch.sim.worlds import WorldConfig
@@ -169,3 +172,18 @@ def uncertainty_field_from_jax(field, device="cpu") -> UncertaintyField:
     out.grid = torch.as_tensor(np.array(field.grid, np.float32), device=device)
     out.update_count = field.update_count
     return out
+
+
+def edge_config_from_jax_fields(d) -> EdgeConfig:
+    """The edge's ``EdgeConfig`` from the JAX package's (a dataclass) or a
+    dict, with its ``trajectory_limits`` carried across."""
+    return _nested(EdgeConfig, d, {"trajectory_limits": SafetyLimits})
+
+
+def telemetry_packet_from_jax(packet) -> TelemetryPacket:
+    """A ``TelemetryPacket`` from the JAX package's (or a dict of its
+    fields, the compression as its enum or its value): the same payload
+    bytes, which the port's compressor decompresses."""
+    f = _fields(packet)
+    mode = f["compression"]
+    return TelemetryPacket(**{**f, "compression": CompressionType(getattr(mode, "value", mode))})

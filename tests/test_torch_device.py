@@ -4,11 +4,17 @@ raise the error of ``common/device.py::default_device``, which names
 ``device="cpu"``. They never fall back to the CPU. Each test decides in its
 body whether a card is visible."""
 
+import socket
+
 import numpy as np
 import pytest
 import torch
 
 from dart_planner_tpu_torch import DroneState
+from dart_planner_tpu_torch.apps.autonomous import OnboardAutonomousController
+from dart_planner_tpu_torch.apps.cloud import ThreeLayerCloudController
+from dart_planner_tpu_torch.apps.edge import EdgeConfig, EdgeController
+from dart_planner_tpu_torch.hardware import VehicleIOFactory
 from dart_planner_tpu_torch.common import device as D
 from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.control.geometric import (
@@ -26,6 +32,26 @@ from dart_planner_tpu_torch.runtime.fast_path import PlannerFastPath
 from dart_planner_tpu_torch.sim import closed_loop, scenarios, worlds
 
 SMALL = se3_mpc.SE3MPCConfig(prediction_horizon=8, max_iterations=2)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cloud_device():
+    """The cloud controller's device, on a free port; its socket closed."""
+    cloud = ThreeLayerCloudController(port=_free_port())
+    cloud.server.stop()
+    return cloud.se3_planner.device
+
+
+def _edge_device():
+    """The edge controller's device; its client closed."""
+    edge = EdgeController(EdgeConfig(cloud_port=_free_port()))
+    edge.stop()
+    return edge.vehicle.device
 
 ENTRY_POINTS = {
     "SE3MPCPlanner": lambda: se3_mpc.SE3MPCPlanner().device,
@@ -58,6 +84,12 @@ ENTRY_POINTS = {
     "mapper_navigation": lambda: scenarios.mapper_navigation(SMALL)[0].positions.device,
     "figure8_tracking": lambda: scenarios.figure8_tracking(
         SMALL, num_replans=2).positions.device,
+    "ThreeLayerCloudController": _cloud_device,
+    "EdgeController": _edge_device,
+    "OnboardAutonomousController": lambda: OnboardAutonomousController().device,
+    # the vehicle minimal_takeoff flies (apps/minimal_takeoff.py)
+    "minimal_takeoff vehicle": lambda: VehicleIOFactory.create(
+        "simulated", {"device": None}).device,
 }
 
 

@@ -69,6 +69,17 @@ def test_scan_sees_the_mission_stack():
         assert f"{PKG}/{path}" in seen, path
 
 
+def test_scan_sees_the_deployment():
+    """The scan reaches the edge<->cloud deployment: the apps over comms."""
+    seen = {where.split(":")[0] for _, _, _, where in _scan()}
+    for path in ("apps/cloud.py", "apps/edge.py", "apps/autonomous.py",
+                 "apps/minimal_takeoff.py", "comms/serializer.py",
+                 "comms/zmq_transport.py", "comms/telemetry.py"):
+        assert f"{PKG}/{path}" in seen, path
+    assert {"apps", "comms"} <= set(SUBPACKAGES)
+    assert (RANK["comms"], RANK["apps"]) == (3, 5)
+
+
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_module_level_layering(sub):
     violations = [
