@@ -46,10 +46,17 @@ through B1) serving the edge, flown in this process at ``EdgeConfig()``
 pyzmq, both in this process linked by an in-process pair that carries the
 signed bytes through the port's request handling (plan and tick times by
 CUDA events, round trips on the host clock, the control task's achieved
-rate, the idle share, 15a); the onboard fallback through NOMINAL,
-DEGRADED and AUTONOMOUS with its replans through B1, and the minimal
-takeoff (15b); and B1 on the cloud's first plans against the plain path
-(15c). Phases 7
+rate, the idle share, 15a; the cloud entered through the port's CLI,
+``cli.main(["run", "--mode=cloud", ...])``, which loads the frozen config
+and serves ``/metrics``, scraped once); the onboard fallback through
+NOMINAL, DEGRADED and AUTONOMOUS with its replans through B1, and the
+minimal takeoff (15b); and B1 on the cloud's first plans against the plain
+path (15c); and the front door (phase 16): the DI container's planner,
+built from the frozen config, planning through B1 against the plain path,
+and under a ``DART_PREDICTION_HORIZON=10`` override (16a), and the web
+demo's ``DemoEngine`` on the card, started and stopped through its REST
+handler, 10 replans of ``precision_landing`` through B1, its first
+against the plain path (16b). Phases 7
 and 10 time the kernels against their plain versions with CUDA events, and
 the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -1976,14 +1983,16 @@ def _cloud_summary(rec: dict, launches: int) -> dict:
 
 def serve_cloud(port: int) -> None:
     """Phase 15a's cloud in a process of its own, as deployed: the port's
-    ``apps.cloud.main`` (the demo mission, ``SE3MPCConfig()``, the card) on
-    ``port``, its secret from ``DART_ZMQ_SECRET``, instrumented by
-    :func:`_instrument_cloud`, until SIGTERM stops its planning loop. Then
-    prints :func:`_cloud_summary`'s record as one JSON line."""
-    import asyncio
+    CLI, ``cli.main(["run", "--mode=cloud", "--port", port, ...])``, which
+    loads and validates the frozen config, serves ``/metrics`` on
+    ``DART_METRICS_PORT`` and runs ``apps.cloud.main`` (the demo mission,
+    ``SE3MPCConfig()``, the card) on ``port``, its secret from
+    ``DART_ZMQ_SECRET``; instrumented by :func:`_instrument_cloud`, until
+    SIGTERM stops its planning loop. Then prints :func:`_cloud_summary`'s
+    record as one JSON line."""
     import signal
 
-    from dart_planner_tpu_torch.apps import cloud
+    from dart_planner_tpu_torch.apps import cli
     from dart_planner_tpu_torch.ops import cuda_mpc
 
     rec, restore = _instrument_cloud()
@@ -1993,8 +2002,9 @@ def serve_cloud(port: int) -> None:
             rec["controller"].stop()
 
     signal.signal(signal.SIGTERM, stop)
-    asyncio.run(cloud.main(port=port, duration=CLOUD_MAX_S))
+    rc = cli.main(["run", "--mode=cloud", "--port", str(port), "--duration", str(CLOUD_MAX_S)])
     restore()
+    check(rc == 0, f"cloud: the CLI returned {rc}")
     print(json.dumps(_cloud_summary(rec, cuda_mpc.LAUNCHES)), flush=True)
 
 
@@ -2098,10 +2108,23 @@ def _fly_edge(dev, key: str, port: int, client=None) -> dict:
             "launches": {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}}
 
 
+def _scrape_metrics(port: int) -> dict:
+    """One GET of ``/metrics`` on ``port``: the status, the content type and
+    the exposition's sample lines (neither comments nor blank)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        body = r.read().decode()
+        out = {"status": r.status, "type": r.headers["Content-Type"]}
+    out["samples"] = [ln for ln in body.splitlines() if ln and not ln.startswith("#")]
+    return out
+
+
 def _deploy_over_zmq(dev, key: str) -> tuple:
-    """15a with pyzmq: the cloud's ``main`` in a process of its own on the
-    card (:func:`serve_cloud`), waited for until it answers, then the edge
-    flown in this process over tcp loopback; the cloud stopped by SIGTERM
+    """15a with pyzmq: the cloud entered through the CLI in a process of its
+    own on the card (:func:`serve_cloud`), waited for until it answers, then
+    the edge flown in this process over tcp loopback; the CLI's
+    ``/metrics`` scraped once after the flight; the cloud stopped by SIGTERM
     and its record read from its output. Returns (cloud record, edge
     record, transport)."""
     import os
@@ -2111,7 +2134,7 @@ def _deploy_over_zmq(dev, key: str) -> tuple:
     from dart_planner_tpu_torch.common.errors import CommunicationError
     from dart_planner_tpu_torch.comms import SecureSerializer, ZmqClient
 
-    port = _free_port()
+    port, metrics_port = _free_port(), _free_port()
 
     def tail(f, n=2000) -> str:
         f.seek(0)
@@ -2121,7 +2144,8 @@ def _deploy_over_zmq(dev, key: str) -> tuple:
         proc = subprocess.Popen(
             [sys.executable, "-c", f"import chip_smoke; chip_smoke.serve_cloud({port})"],
             cwd=pathlib.Path(__file__).resolve().parent, stdout=out, stderr=err,
-            env={**os.environ, "DART_ZMQ_SECRET": key})
+            env={**os.environ, "DART_ZMQ_SECRET": key,
+                 "DART_METRICS_PORT": str(metrics_port)})
         try:
             probe = ZmqClient(port=port, timeout_ms=1000,
                               serializer=SecureSerializer(secret_key=key))
@@ -2142,6 +2166,9 @@ def _deploy_over_zmq(dev, key: str) -> tuple:
             edge = _fly_edge(dev, key, port)
             check(proc.poll() is None, f"cloud: the process died during the flight "
                   f"({proc.returncode}): {tail(err)}")
+            scrape = _scrape_metrics(metrics_port)
+            check(scrape["status"] == 200 and scrape["type"].startswith("text/plain"),
+                  f"cloud: /metrics answered {scrape['status']} {scrape['type']}")
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
         finally:
@@ -2150,9 +2177,12 @@ def _deploy_over_zmq(dev, key: str) -> tuple:
                 proc.wait()
         lines = tail(out, 10**7).strip().splitlines()
         check(rc == 0 and lines, f"cloud: exit code {rc}, stderr: {tail(err)}")
-    cloud = json.loads(lines[-1])
-    return cloud, edge, (f"ZMQ REQ/REP over tcp loopback, the cloud's process answering "
-                         f"{started:.1f} s after its start")
+    cloud = {**json.loads(lines[-1]), "via_cli": True}
+    return cloud, edge, (f"ZMQ REQ/REP over tcp loopback, the cloud entered through the CLI "
+                         f"(cli.main run --mode=cloud) in its own process, answering "
+                         f"{started:.1f} s after its start, its /metrics scraped once "
+                         f"({scrape['status']}, {scrape['type']}, "
+                         f"{len(scrape['samples'])} samples)")
 
 
 def _deploy_in_process(dev, key: str) -> tuple:
@@ -2186,7 +2216,7 @@ def _deploy_in_process(dev, key: str) -> tuple:
     finally:
         restore()
     edge["launches"] = {"B1": 0, "B2": edge["launches"]["B2"]}
-    return cloud, edge, "in-process (no pyzmq on this machine)"
+    return {**cloud, "via_cli": False}, edge, "in-process (no pyzmq on this machine)"
 
 
 def deployment_phase(dev, card: str) -> dict:
@@ -2255,10 +2285,49 @@ def deployment_phase(dev, card: str) -> dict:
           f"method='torch' on the same problems and warm starts: positions max |diff| "
           f"{worst:.3g} m (1e-3)", flush=True)
     return {"launches": cloud["launches"], "plans": plans, "parity_m": worst,
+            "via_cli": cloud["via_cli"],
             "plan_ms": cloud["plan_ms"], "rt_ms": [float(np.percentile(rt, q)) for q in (50, 95)],
             "tick_ms": [float(np.percentile(tick, q)) for q in (50, 95)],
             "control_hz": ctl.get("achieved_frequency_hz", 0.0), "idle": edge["prof"]["idle"],
             "transport": transport}
+
+
+def record_first_solve(rec: list):
+    """``se3_mpc.solve`` patched to keep the first solve's (config, problem,
+    warm start, obstacles flag, positions) in ``rec``; returns the function
+    that undoes the patch."""
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    solve = se3_mpc.solve
+
+    def recording_solve(cfg, prob, u_init=None, use_obstacles=True, method="auto"):
+        res = solve(cfg, prob, u_init, use_obstacles, method)
+        if not rec:
+            rec.append((cfg, prob, None if u_init is None else u_init.clone(), use_obstacles,
+                        res.positions.clone()))
+        return res
+
+    se3_mpc.solve = recording_solve
+
+    def restore():
+        se3_mpc.solve = solve
+
+    return restore
+
+
+def plain_gap(rec: list, tag: str) -> float:
+    """The recorded solve against the plain path on the same problem and
+    warm start: max |positions difference|, m; the plain path must not
+    launch B1."""
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    check(len(rec) == 1, f"{tag}: no solve was recorded")
+    cfg, prob, u0, use_obstacles, pos = rec[0]
+    before = cuda_mpc.LAUNCHES
+    plain = se3_mpc.solve(cfg, prob, u0, use_obstacles, method="torch")
+    check(cuda_mpc.LAUNCHES == before, f"{tag}: the plain path launched B1")
+    return float((pos - plain.positions).abs().max())
 
 
 def onboard_phase(dev, card: str) -> dict:
@@ -2280,7 +2349,6 @@ def onboard_phase(dev, card: str) -> dict:
         OnboardAutonomousController, OperationalMode)
     from dart_planner_tpu_torch.apps.minimal_takeoff import minimal_takeoff
     from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
-    from dart_planner_tpu_torch.planning import se3_mpc
 
     t_phase = time.perf_counter()
     ctl = OnboardAutonomousController()  # the card by default
@@ -2293,18 +2361,10 @@ def onboard_phase(dev, card: str) -> dict:
         timestamps=ts, positions=torch.stack([0.1 * ts, 0 * ts, 2.0 + 0.1 * ts], -1),
         velocities=torch.zeros(n, 3, device=dev), accelerations=torch.zeros(n, 3, device=dev))
     schedule = [(0.95, cloud_plan)] * 10 + [(0.5, None)] * 10 + [(0.0, None)] * 40
-    rec, modes, solve = [], [], se3_mpc.solve
-
-    def recording_solve(cfg, prob, u_init=None, use_obstacles=True, method="auto"):
-        res = solve(cfg, prob, u_init, use_obstacles, method)
-        if not rec:
-            rec.append((cfg, prob, None if u_init is None else u_init.clone(), use_obstacles,
-                        res.positions.clone()))
-        return res
-
+    rec, modes = [], []
     torch.cuda.synchronize()
     cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
-    se3_mpc.solve = recording_solve
+    restore = record_first_solve(rec)
     try:
         t0 = time.perf_counter()
         for k, (quality, plan) in enumerate(schedule):
@@ -2318,7 +2378,7 @@ def onboard_phase(dev, card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        se3_mpc.solve = solve
+        restore()
     launches = {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}
     replans = ctl.get_system_status()["planner_stats"]["total_plans"]
     expected = [OperationalMode.NOMINAL, OperationalMode.DEGRADED, OperationalMode.AUTONOMOUS]
@@ -2326,11 +2386,8 @@ def onboard_phase(dev, card: str) -> dict:
     check(replans > 0 and launches["B1"] > 0 and launches["B1"] % replans == 0
           and launches["B2"] == 0,
           f"onboard: launches {launches} for {replans} AUTONOMOUS replans")
-    cfg, prob, u0, use_obstacles, pos = rec[0]
-    before = cuda_mpc.LAUNCHES
-    plain = se3_mpc.solve(cfg, prob, u0, use_obstacles, method="torch")
-    check(cuda_mpc.LAUNCHES == before, "15b: the plain path launched B1")
-    dpos = float((pos - plain.positions).abs().max())
+    dpos = plain_gap(rec, "15b")
+    cfg = rec[0][0]
     check(dpos <= 1e-3, f"15b: the first onboard replan, positions max |kernel - plain| "
           f"{dpos:.3g} m > 1e-3")
     t1 = time.perf_counter()
@@ -2349,6 +2406,226 @@ def onboard_phase(dev, card: str) -> dict:
           f"final {takeoff['final_altitude']:.3f} m in {t_takeoff:.1f} s of wall", flush=True)
     return {"launches": launches["B1"], "per_replan": launches["B1"] / replans,
             "parity_m": dpos}
+
+
+DEMO_SCENARIO, DEMO_REPLANS = "precision_landing", 10
+DI_SCENARIO = "obstacle_avoidance"
+# the keys of the JAX package's state_update frame (apps/web_demo.py) and of
+# its drone_state
+DEMO_FRAME_KEYS = {"type", "drone_state", "plan", "trajectory", "performance", "scenario",
+                   "obstacles", "goal", "target", "status"}
+
+
+def di_planner_phase(dev, card: str) -> dict:
+    """Phase 16a, the config path: the DI container's ``SE3MPCPlanner``,
+    built from ``get_frozen_config().planning.to_se3_config()`` on the card,
+    plans once from the web demo's ``obstacle_avoidance`` start with its
+    spheres, with the launch counts set to 0 just before and read just
+    after: 2 launches of B1, its positions within 1e-3 m of the plain path
+    (15c's gate). Then a ``DART_PREDICTION_HORIZON=10`` override gives a
+    planner with N=10, whose plan launches B1 too."""
+    import os
+
+    import torch
+
+    from dart_planner_tpu_torch import DroneState
+    from dart_planner_tpu_torch.apps.web_demo import DEMO_SCENARIOS
+    from dart_planner_tpu_torch.common.di import create_default_container
+    from dart_planner_tpu_torch.config import get_frozen_config, reset_frozen_config
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning.se3_mpc import SE3MPCPlanner
+
+    t_phase = time.perf_counter()
+    sc = DEMO_SCENARIOS[DI_SCENARIO]
+    reset_frozen_config()
+    planner = create_default_container().resolve(SE3MPCPlanner)  # the card by default
+    check(planner.device == dev, f"16a: the DI planner is on {planner.device}")
+    check(planner.config == get_frozen_config().planning.to_se3_config(),
+          "16a: the DI planner's config is not the frozen config's")
+    for o in sc["obstacles"]:
+        planner.add_obstacle(o["pos"], o["radius"])
+    state = DroneState.create(position=sc["start_pos"], device=dev)
+    rec = []
+    restore = record_first_solve(rec)
+    try:
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = 0
+        start = _event_pair()
+        traj = planner.plan_trajectory(state, sc["goal_pos"])
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        launches = cuda_mpc.LAUNCHES
+    finally:
+        restore()
+    plan_ms = start.elapsed_time(end)
+    check(launches == 2, f"16a: {launches} launches of B1 for the DI planner's plan, not 2")
+    check(tuple(traj.positions.shape) == (planner.config.prediction_horizon, 3)
+          and bool(torch.isfinite(traj.positions).all()), "16a: the plan is not finite (N, 3)")
+    dpos = plain_gap(rec, "16a")
+    check(dpos <= 1e-3, f"16a: the DI planner's plan, positions max |kernel - plain| "
+          f"{dpos:.3g} m > 1e-3")
+    saved = os.environ.get("DART_PREDICTION_HORIZON")
+    os.environ["DART_PREDICTION_HORIZON"] = "10"
+    reset_frozen_config()
+    try:
+        short = create_default_container().resolve(SE3MPCPlanner)
+        check(short.config.prediction_horizon == 10 and short.device == dev,
+              f"16a: the override gave N={short.config.prediction_horizon} on {short.device}")
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = 0
+        traj10 = short.plan_trajectory(state, sc["goal_pos"])
+        torch.cuda.synchronize()
+        launches10 = cuda_mpc.LAUNCHES
+    finally:
+        if saved is None:
+            del os.environ["DART_PREDICTION_HORIZON"]
+        else:
+            os.environ["DART_PREDICTION_HORIZON"] = saved
+        reset_frozen_config()
+    check(launches10 == 2 and tuple(traj10.positions.shape) == (10, 3),
+          f"16a: the N=10 planner launched B1 {launches10} times, plan "
+          f"{tuple(traj10.positions.shape)}")
+    print(f"[16a config] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); the DI "
+          f"container's SE3MPCPlanner on {dev} from get_frozen_config().planning.to_se3_config() "
+          f"(N={planner.config.prediction_horizon}, {planner.config.max_iterations} rounds, "
+          f"two-phase), {DI_SCENARIO}'s start and {len(sc['obstacles'])} spheres: B1 launches "
+          f"{launches}, the first plan {plan_ms:.3f} ms by CUDA events (cold), positions vs "
+          f"method='torch' max |diff| {dpos:.3g} m (1e-3); DART_PREDICTION_HORIZON=10: N=10, "
+          f"B1 launches {launches10}", flush=True)
+    return {"launches": launches + launches10, "per_plan": launches, "parity_m": dpos}
+
+
+def _post(port: int, path: str) -> int:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status
+
+
+def web_demo_phase(dev, card: str) -> dict:
+    """Phase 16b, the web demo: ``DemoEngine`` on the card (``SE3MPCConfig()``,
+    400 Hz ticks, 10 Hz replans) behind the demo's REST handler on a real
+    ``ThreadingHTTPServer``, with a collecting in-process client in place of
+    a websocket. ``POST /api/start/precision_landing``, DEMO_REPLANS
+    ``state_update`` frames, then ``POST /api/stop``, with the launch counts
+    set to 0 just before the start and read just after the stop. Checks: 2
+    launches of B1 a replan, the frames of the JAX package's shape, 20 knots
+    a plan, the vehicle's z decreasing, and the first replan's positions
+    within 1e-3 m of the plain path (15c's gate). Times each replan on the
+    host clock, from the plan's start to its frame's arrival, and each plan
+    by CUDA events."""
+    import asyncio
+    import http.server
+    import threading
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.apps import web_demo
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning.se3_mpc import SE3MPCConfig, SE3MPCPlanner
+
+    t_phase = time.perf_counter()
+    engine = web_demo.DemoEngine()  # the card by default
+    check(engine.device == dev, f"16b: the demo engine is on {engine.device}")
+    plans, frames, rec = [], [], []
+    plan_trajectory = SE3MPCPlanner.plan_trajectory
+
+    def timed_plan(self, state, goal):
+        t0, start = time.perf_counter(), _event_pair()
+        out = plan_trajectory(self, state, goal)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        plans.append((t0, start, end))
+        return out
+
+    class Collect:
+        """A websocket client's stand-in: keeps each frame with its arrival
+        time (host clock)."""
+
+        def __init__(self):
+            self.done = asyncio.Event()
+
+        async def send(self, payload):
+            frames.append((time.perf_counter(), json.loads(payload)))
+            if sum(m["type"] == "state_update" for _, m in frames) >= DEMO_REPLANS:
+                self.done.set()
+
+    async def fly():
+        loop = asyncio.get_running_loop()
+        httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                web_demo._make_handler(engine, loop))
+        serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+        serving.start()
+        client = Collect()
+        engine.clients.add(client)
+        try:
+            port = httpd.server_address[1]
+            torch.cuda.synchronize()
+            cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+            t0 = time.perf_counter()
+            status = await loop.run_in_executor(None, _post, port, f"/api/start/{DEMO_SCENARIO}")
+            check(status == 200, f"16b: the start answered {status}")
+            await asyncio.wait_for(client.done.wait(), timeout=300)
+            status = await loop.run_in_executor(None, _post, port, "/api/stop")
+            check(status == 200, f"16b: the stop answered {status}")
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}
+        finally:
+            httpd.shutdown()
+            serving.join(timeout=30)
+            httpd.server_close()
+
+    SE3MPCPlanner.plan_trajectory = timed_plan
+    restore = record_first_solve(rec)
+    try:
+        wall, launches = asyncio.run(fly())
+    finally:
+        restore()
+        SE3MPCPlanner.plan_trajectory = plan_trajectory
+    check(not engine.is_running, "16b: the engine still runs after the stop")
+    check(engine.planner.device == engine.mapper.device == engine.vehicle.device == dev,
+          "16b: the engine's planner, mapper and vehicle are not all on the card")
+    check(engine.planner.config == SE3MPCConfig(), "16b: the engine's planner config")
+    updates = [(t, m) for t, m in frames if m["type"] == "state_update"]
+    n_plans = engine.planner.get_planning_stats()["total_plans"]
+    check(len(updates) >= DEMO_REPLANS and n_plans >= len(updates),
+          f"16b: {len(updates)} frames for {n_plans} plans")
+    check(launches == {"B1": 2 * n_plans, "B2": 0},
+          f"16b: launches {launches} for {n_plans} replans, not 2 of B1 a replan")
+    for _, m in updates:
+        check(set(m) == DEMO_FRAME_KEYS and set(m["drone_state"]) == {"position", "velocity"},
+              f"16b: a frame's keys {sorted(m)}")
+        check(len(m["plan"]) == 20 and m["scenario"] == DEMO_SCENARIO,
+              f"16b: a plan of {len(m['plan'])} knots for {m['scenario']}")
+    z = [m["drone_state"]["position"][2] for _, m in updates]
+    check(z[-1] < z[0] and all(b <= a + 1e-3 for a, b in zip(z, z[1:])),
+          f"16b: the vehicle's z is not decreasing: {[round(v, 3) for v in z]}")
+    dpos = plain_gap(rec, "16b")
+    check(dpos <= 1e-3, f"16b: the demo's first replan, positions max |kernel - plain| "
+          f"{dpos:.3g} m > 1e-3")
+    check(np.array_equal(np.float32(updates[0][1]["plan"]), rec[0][4].cpu().numpy()),
+          "16b: the first frame's plan is not the first solve's positions")
+    replan_ms = [(t - p[0]) * 1e3 for (t, _), p in zip(updates, plans)]
+    plan_ms = _elapsed([(s, e) for _, s, e in plans])
+    rate = (len(updates) - 1) / (updates[-1][0] - updates[0][0])
+    print(f"[16b web demo] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"DemoEngine on {dev} (SE3MPCConfig(), 400 Hz ticks, 10 Hz replans, {DEMO_SCENARIO}) "
+          f"behind the REST handler on a ThreadingHTTPServer, started and stopped over HTTP, "
+          f"{wall:.3f} s from the start to the stop: {len(updates)} state_update frames of the "
+          f"JAX shape, {n_plans} plans, launches {launches} (2 of B1 a replan), 20 knots a plan, "
+          f"z {z[0]:.3f} -> {z[-1]:.3f} m; the first replan vs method='torch': positions max "
+          f"|diff| {dpos:.3g} m (1e-3); a replan (host clock, the plan's start to its frame: "
+          f"the plan, {engine.substeps} eager vehicle ticks, the map query, the broadcast) "
+          f"{_pcts(replan_ms)}; a plan (CUDA events around plan_trajectory) {_pcts(plan_ms)}; "
+          f"frames at {rate:.2f} Hz of wall (10 Hz asked)", flush=True)
+    return {"launches": launches["B1"], "per_plan": launches["B1"] / n_plans,
+            "parity_m": dpos,
+            "replan_ms": [float(np.percentile(replan_ms, q)) for q in (50, 95)],
+            "plan_ms": [float(np.percentile(plan_ms, q)) for q in (50, 95)],
+            "frame_hz": rate}
 
 
 def run(baseline_source=None) -> dict:
@@ -2427,6 +2704,11 @@ def run(baseline_source=None) -> dict:
     # -- 15. the edge<->cloud deployment and the edge's onboard fallback ------
     deploy = deployment_phase(dev, card)
     onboard = onboard_phase(dev, card)
+    # -- 16. the front door: the config's planner and the web demo ------------
+    t16 = time.perf_counter()
+    di = di_planner_phase(dev, card)
+    demo = web_demo_phase(dev, card)
+    print(f"[16 front door] ({card}) {time.perf_counter() - t16:.1f} s (host clock)", flush=True)
 
     replans = mc_config().num_replans
     return {
@@ -2443,16 +2725,23 @@ def run(baseline_source=None) -> dict:
                                      "sweep": sweep["launches"]["B1"],
                                      "mission": mission["launches"],
                                      "three_layer": layers["launches"],
-                                     "cloud": deploy["launches"],
-                                     "onboard": onboard["launches"]},
+                                     ("cli_cloud" if deploy["via_cli"] else "cloud"):
+                                         deploy["launches"],
+                                     "onboard": onboard["launches"],
+                                     "di_planner": di["launches"],
+                                     "web_demo": demo["launches"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
                                        "cloud_replan": deploy["launches"] / deploy["plans"],
-                                       "onboard_replan": onboard["per_replan"]},
+                                       "onboard_replan": onboard["per_replan"],
+                                       "di_planner_plan": di["per_plan"],
+                                       "web_demo_replan": demo["per_plan"]},
                 "mission_max_abs_err_m": dpos_mission,
                 "cloud_max_abs_err_m": deploy["parity_m"],
                 "onboard_max_abs_err_m": onboard["parity_m"],
+                "di_planner_max_abs_err_m": di["parity_m"],
+                "web_demo_max_abs_err_m": demo["parity_m"],
                 "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"]),
                 "ms": b1["ms"],
                 "device_ms": b1["device_ms"],

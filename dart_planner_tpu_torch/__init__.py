@@ -1,12 +1,16 @@
 """DART-Planner on PyTorch and CUDA: the SE(3) MPC solve, the closed-loop
-Monte-Carlo, the three-layer mission stack and the edge<->cloud deployment
-for NVIDIA Hopper.
+Monte-Carlo, the three-layer mission stack, the edge<->cloud deployment and
+the system's front door (the frozen configuration, the CLI, the DI
+container and the web demo) for NVIDIA Hopper.
 
 A port of :mod:`dart_planner_tpu` (the JAX/Pallas package, which stays the
 reference) with the same module layout:
 
 - ``common/``     types, frames, errors, the default device, runtime
-  metrics, logging, timing alignment and the vector PID
+  metrics, logging, timing alignment, the vector PID, the DI container,
+  SI units, the versioned state buffers and retry / circuit breakers
+- ``config/``     the frozen configuration (YAML + ``DART_*`` overrides),
+  vehicle parameters and airframe presets
 - ``ops/``        condensed dynamics, cost model, SO(3) operators, and the
   hand-written CUDA kernels: the solver (``ops/cuda_mpc.py`` over
   ``csrc/mpc_solve.cu``) and the closed-loop tick block
@@ -25,14 +29,16 @@ reference) with the same module layout:
 - ``estimation/`` the batched EKF and the estimator adapters
 - ``security/``   input validation
 - ``hardware/``   the vehicle I/O, the simulated vehicle, the motor model
-  and mixer, and the mission runner
+  and mixer, the mission runner, the safety manager and watchdog, and the
+  transport-delay buffer
 - ``runtime/``    the planner-to-actuator fast path, the C++ RT executor
   bindings, the asyncio scheduler and the real-time integration layer
 - ``comms/``      the edge<->cloud boundary: the signed serializer (the
   JAX package's wire format), the ZMQ transport, the heartbeat and
   telemetry compression
-- ``apps/``       the three-layer cloud, the edge control loop, the onboard
-  autonomous controller and the minimal takeoff
+- ``apps/``       the ``dart-planner-tpu-torch`` CLI, the three-layer
+  cloud, the edge control loop, the onboard autonomous controller, the
+  minimal takeoff and the browser demo
 
 ``planning.se3_mpc.solve(..., method="auto")`` and
 ``sim.closed_loop.simulate_episode(..., method="auto")`` run the CUDA

@@ -48,8 +48,8 @@ async def minimal_takeoff(
     }
 
 
-def main() -> None:
-    out = asyncio.run(minimal_takeoff())
+def main(device=None) -> None:
+    out = asyncio.run(minimal_takeoff(device=device))
     print(
         f"takeoff demo: peak {out['peak_altitude']:.2f} m, "
         f"hover {out['hover_altitude']:.2f} m, "

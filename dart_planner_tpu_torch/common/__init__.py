@@ -1,1 +1,2 @@
-"""Shared types, frames, errors, the default device and runtime metrics."""
+"""Shared types, frames, errors, the default device, runtime metrics, the
+DI container, SI units, state buffers and error recovery."""

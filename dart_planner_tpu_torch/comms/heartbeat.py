@@ -4,10 +4,9 @@ A framework-free copy of :mod:`dart_planner_tpu.comms.heartbeat`: the port
 keeps its own, since the JAX package cannot be imported without jax.
 
 Port of the reference ``HeartbeatMonitor``
-(the reference's communication/heartbeat.py): interval / timeout of
-100 ms / 500 ms (the central config's defaults), monitor loop that calls
-an emergency callback on loss (:80-104). ``HeartbeatConfig`` has no
-``from_central_config`` here until ``config/`` is ported.
+(the reference's communication/heartbeat.py): interval / timeout from
+the central config (100 ms / 500 ms, the port's ``config/defaults.yaml``),
+monitor loop that calls an emergency callback on loss (:80-104).
 """
 
 from __future__ import annotations
@@ -25,6 +24,16 @@ class HeartbeatConfig:
     interval_ms: int = 100
     timeout_ms: int = 500
     mavlink_timeout_s: float = 5.0
+
+    @classmethod
+    def from_central_config(cls) -> "HeartbeatConfig":
+        from dart_planner_tpu_torch.config import get_frozen_config
+
+        comm = get_frozen_config().communication
+        return cls(
+            interval_ms=comm.heartbeat_interval_ms,
+            timeout_ms=comm.heartbeat_timeout_ms,
+        )
 
 
 class HeartbeatMessage:

@@ -1,8 +1,10 @@
 """Hardware abstraction layer (PyTorch counterpart of
 :mod:`dart_planner_tpu.hardware`): a ``VehicleIO`` ABC + factory, the
-pure-software simulated vehicle, physics-based motor mixing and models, and
-the mission runner. The MAVLink and AirSim adapters, the safety watchdog and
-the transport-delay buffer are not ported yet."""
+pure-software simulated vehicle, physics-based motor mixing and models, the
+mission runner, the state-level safety manager, the heartbeat safety
+watchdog and the transport-delay buffer. The MAVLink and AirSim adapters,
+the secure interface, the mixing schema and the motor calibration are not
+ported yet."""
 
 from dart_planner_tpu_torch.hardware.vehicle_io import (
     VehicleIO,
@@ -22,6 +24,9 @@ from dart_planner_tpu_torch.hardware.motor_mixer import (
     create_x_configuration,
     create_plus_configuration,
 )
+from dart_planner_tpu_torch.hardware.safety_watchdog import SafetyWatchdog
+from dart_planner_tpu_torch.hardware.latency_buffer import LatencyBuffer
+from dart_planner_tpu_torch.hardware.safety import SafetyLimits, SafetyManager
 from dart_planner_tpu_torch.hardware.mission import (
     MissionConfig,
     MissionRunner,
@@ -44,4 +49,8 @@ __all__ = [
     "MotorMixingConfig",
     "create_x_configuration",
     "create_plus_configuration",
+    "SafetyWatchdog",
+    "LatencyBuffer",
+    "SafetyLimits",
+    "SafetyManager",
 ]

@@ -46,14 +46,22 @@ def initialize(
 
     ``coordinator_address`` is ``host:port`` of process 0, reached over
     ``tcp://``; with no arguments the standard ``MASTER_ADDR``/``RANK``/
-    ``WORLD_SIZE`` environment is read. ``backend`` defaults to NCCL when a
-    card is visible and gloo otherwise. An NCCL process is pinned first to
-    ``device``, by default the card of its local rank (:func:`local_rank`),
-    so two processes on one host never share a card."""
+    ``WORLD_SIZE`` environment is read. ``backend`` defaults to NCCL, which
+    needs a card: without one, a RuntimeError names ``backend="gloo"`` (the
+    group is never carried to the CPU unasked, as
+    :func:`~dart_planner_tpu_torch.common.device.default_device` never
+    falls back). An NCCL process is pinned first to ``device``, by default
+    the card of its local rank (:func:`local_rank`), so two processes on
+    one host never share a card."""
     if dist.is_initialized():
         return
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible: the process group runs on NCCL "
+                'by default; pass backend="gloo" for a group of CPU processes'
+            )
+        backend = "nccl"
     if backend == "nccl":
         if device is None:
             device = local_rank(process_id) % torch.cuda.device_count()

@@ -14,7 +14,9 @@ from dart_planner_tpu_torch import DroneState
 from dart_planner_tpu_torch.apps.autonomous import OnboardAutonomousController
 from dart_planner_tpu_torch.apps.cloud import ThreeLayerCloudController
 from dart_planner_tpu_torch.apps.edge import EdgeConfig, EdgeController
-from dart_planner_tpu_torch.hardware import VehicleIOFactory
+from dart_planner_tpu_torch.apps.web_demo import DemoEngine
+from dart_planner_tpu_torch.common.di import create_default_container
+from dart_planner_tpu_torch.hardware import SafetyManager, VehicleIOFactory
 from dart_planner_tpu_torch.common import device as D
 from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.control.geometric import (
@@ -90,6 +92,10 @@ ENTRY_POINTS = {
     # the vehicle minimal_takeoff flies (apps/minimal_takeoff.py)
     "minimal_takeoff vehicle": lambda: VehicleIOFactory.create(
         "simulated", {"device": None}).device,
+    # the front door: the DI container's planner, the web demo
+    "DI container SE3MPCPlanner": lambda: create_default_container().resolve(
+        se3_mpc.SE3MPCPlanner).device,
+    "DemoEngine": lambda: DemoEngine().device,
 }
 
 
@@ -101,6 +107,25 @@ def test_entry_point_defaults_to_the_card(name):
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             make()
+
+
+def test_front_door_on_the_cpu_on_request():
+    """The DI container's planner and the demo engine run on the CPU when
+    given ``device="cpu"``."""
+    cpu = torch.device("cpu")
+    assert create_default_container(device="cpu").resolve(se3_mpc.SE3MPCPlanner).device == cpu
+    assert DemoEngine(device="cpu").device == cpu
+
+
+def test_safety_manager_checks_a_state_where_it_lies(monkeypatch):
+    """The safety manager makes no tensors of its own: it reduces a state on
+    the state's device, so a CPU state is checked without a card and
+    without a copy to one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sm = SafetyManager()
+    assert sm.check_state(DroneState.create(position=(0.0, 0.0, 5.0), device="cpu")) is None
+    high = DroneState.create(position=(0.0, 0.0, 60.0), device="cpu")
+    assert "altitude" in sm.check_state(high)
 
 
 def test_cpu_on_request_and_factory_passes_device():

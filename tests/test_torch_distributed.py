@@ -100,3 +100,12 @@ def test_world_of_one_reduces_like_no_group():
     assert not torch.distributed.is_initialized()
     for a, b in zip(grouped, alone):
         assert float(a) == float(b)
+
+
+def test_initialize_without_a_card_names_gloo(monkeypatch):
+    """With no backend and no visible card, ``initialize`` raises and names
+    ``backend="gloo"``: it never carries a group to the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='backend="gloo"'):
+        distributed.initialize(f"localhost:{_free_port()}", 1, 0)
+    assert not torch.distributed.is_initialized()

@@ -80,6 +80,18 @@ def test_scan_sees_the_deployment():
     assert (RANK["comms"], RANK["apps"]) == (3, 5)
 
 
+def test_scan_sees_the_front_door():
+    """The scan reaches the configuration and the apps that load it: the
+    CLI and the web demo; ``config`` keeps the JAX package's rank 1."""
+    seen = {where.split(":")[0] for _, _, _, where in _scan()}
+    for path in ("config/frozen_config.py", "config/vehicle_params.py",
+                 "config/airframe.py", "apps/cli.py",
+                 "apps/web_demo.py", "common/di.py", "hardware/safety.py"):
+        assert f"{PKG}/{path}" in seen, path
+    assert "config" in SUBPACKAGES
+    assert RANK["config"] == 1
+
+
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_module_level_layering(sub):
     violations = [
