@@ -56,9 +56,18 @@ built from the frozen config, planning through B1 against the plain path,
 and under a ``DART_PREDICTION_HORIZON=10`` override (16a), and the web
 demo's ``DemoEngine`` on the card, started and stopped through its REST
 handler, 10 replans of ``precision_landing`` through B1, its first
-against the plain path (16b). Phases 7
-and 10 time the kernels against their plain versions with CUDA events, and
-the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
+against the plain path (16b); and the last of the port (phase 17): a
+mission through ``start_mission`` over the MAVLink adapter on the card
+and a scripted link at the default ``MissionConfig`` (400 Hz / 50 Hz),
+every plan through B1, the first against the plain path, the external
+control tick timed by CUDA events (17a), the link's heartbeat lost and
+the mission grounded (17b); the secure channel's RS256-gated upload of a
+B1 plan to the simulated vehicle on the card, against the plain path, and
+its denials, emergency-stop latch and re-authentication (17c); the AirSim
+adapter on the card against the CPU's, bit for bit (17d); and the process
+loop run after CUDA started here, fed a state read from the card (17e).
+Phases 7 and 10 time the kernels against their plain versions with CUDA
+events, and the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
 floor's cycles a tick are reckoned from assumed instruction latencies, so it
 stays out of the per-kernel JSON record).
@@ -2628,6 +2637,595 @@ def web_demo_phase(dev, card: str) -> dict:
             "frame_hz": rate}
 
 
+MAVLINK_GOAL = (2.0, 0.0, 3.0)  # tests/test_hardware_mission.py's mocked mission
+MAVLINK_TRAVEL_S = 3.0
+MAVLINK_PROFILE_TICKS = 20
+SECURE_GOAL = (2.0, 0.0, 3.0)
+SECURE_TICKS = 400
+PROCESS_LOOP_HZ, PROCESS_LOOP_S = 100.0, 1.0
+
+
+class ScriptedMavlink:
+    """Minimal pymavlink stand-in (a copy of tests/test_hardware_mission.py's
+    ``_ScriptedMavlink``): heartbeats, COMMAND_ACKs, and a scripted
+    LOCAL_POSITION_NED walk toward a target on the wall clock; it also
+    records every SET_ATTITUDE_TARGET's arguments in ``targets`` and every
+    COMMAND_LONG's in ``commands``."""
+
+    class _Msg:
+        def __init__(self, msg_type, **kw):
+            self._t = msg_type
+            self.__dict__.update(kw)
+
+        def get_type(self):
+            return self._t
+
+    def __init__(self, goal_enu, travel_s=3.0, heartbeat_until=1e9):
+        import numpy as np
+
+        self.goal = np.asarray(goal_enu, float)
+        self.start = np.array([0.0, 0.0, 2.0])
+        self.travel_s = travel_s
+        self.heartbeat_until = heartbeat_until
+        self.t0 = None
+        self._cycle = 0
+        self.body_rate_targets = 0
+        self.targets, self.commands = [], []
+        self.target_system = 1
+        self.target_component = 1
+        self.mav = self  # .mav.* methods live on self
+
+    # -- transport factory surface --
+    def mavlink_connection(self, *a, **kw):
+        return self
+
+    def wait_heartbeat(self, timeout=None):
+        self.t0 = time.time()
+        return object()
+
+    def close(self):
+        pass
+
+    # -- mav.* senders --
+    def request_data_stream_send(self, *a):
+        pass
+
+    def command_long_send(self, *a):
+        self.commands.append(a)
+
+    def set_attitude_target_send(self, *a):
+        self.body_rate_targets += 1
+        self.targets.append(a)
+
+    # -- receive side --
+    def _pos_enu(self):
+        u = min((time.time() - self.t0) / self.travel_s, 1.0)
+        return self.start + u * (self.goal - self.start)
+
+    def recv_match(self, type=None, blocking=False, timeout=None):
+        if type == "COMMAND_ACK":
+            return self._Msg("COMMAND_ACK", result=0)
+        self._cycle = (self._cycle + 1) % 4
+        if self._cycle == 1:
+            p = self._pos_enu()
+            v = (self.goal - self.start) / self.travel_s
+            return self._Msg(
+                "LOCAL_POSITION_NED",
+                x=p[0], y=p[1], z=-p[2],  # adapter flips NED z -> ENU
+                vx=v[0], vy=v[1], vz=-v[2],
+            )
+        if self._cycle == 2:
+            return self._Msg(
+                "ATTITUDE",
+                roll=0.0, pitch=0.0, yaw=0.0,
+                rollspeed=0.0, pitchspeed=0.0, yawspeed=0.0,
+            )
+        if self._cycle == 3 and time.time() - self.t0 < self.heartbeat_until:
+            return self._Msg("HEARTBEAT")
+        return None
+
+
+class _TimedControlTicks:
+    """``MissionRunner._control_tick`` patched on the class while a mission
+    built by ``start_mission`` flies: CUDA events around each tick that
+    sends a body-rate target (the vehicle's state onto the card, the
+    arrival check's read, the smoother, the controller, the thrust's and
+    the target's reads), and the runner kept for a later profile. Undone
+    by ``restore``."""
+
+    def __init__(self):
+        from dart_planner_tpu_torch.hardware.mission import MissionRunner
+
+        self.cls, self.tick = MissionRunner, MissionRunner._control_tick
+        self.pairs, self.runner = [], None
+        timed = self
+
+        def control_tick(runner):
+            import torch
+
+            timed.runner = runner
+            sent = runner.state.commands_sent
+            start = _event_pair()
+            timed.tick(runner)
+            if runner.state.commands_sent > sent:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                timed.pairs.append((start, end))
+
+        MissionRunner._control_tick = control_tick
+
+    def restore(self):
+        self.cls._control_tick = self.tick
+
+
+def external_tick_profile(runner, ticks: int = MAVLINK_PROFILE_TICKS) -> dict:
+    """What one external control tick issues, from a torch.profiler pass
+    over ``ticks`` ticks of ``runner`` (its mission over, the runner made
+    active, not done and aimed at a far waypoint again for the pass, its
+    link still answering): device kernels, host reads (device-to-host
+    copies), host writes (host-to-device copies) and top-level host ops,
+    each a tick."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # active again, not done, and aimed at a waypoint it does not reach, so
+    # that each tick also reads the state for the arrival check as a
+    # flying mission's does
+    runner.state.active, runner.state.emergency = True, False
+    runner._mission_done = asyncio.Event()
+    runner._waypoints, runner.state.waypoint_index = [np.array([30.0, 0.0, 3.0])], 0
+    try:
+        for _ in range(3):
+            runner._control_tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(ticks):
+                runner._control_tick()
+            torch.cuda.synchronize()
+    finally:
+        runner.state.active = False
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def count(*words):
+        return sum(1 for e in device if all(w in e.name.lower() for w in words))
+
+    dtoh, htod = count("memcpy", "dtoh"), count("memcpy", "htod")
+    copies = count("memcpy") + count("memset")
+    ops = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+              and e.name.startswith("aten::"))
+    return {"kernels": (len(device) - copies) / ticks, "reads": dtoh / ticks,
+            "writes": htod / ticks, "ops": ops / ticks}
+
+
+def warm_external_tick(dev) -> float:
+    """A plan and the external control tick, once each, on a runner and a
+    planner of their own over a scripted link: the mission's first tick and
+    plan must not hold the loop for a cold start (the link moves on the
+    wall clock and its heartbeat ages meanwhile). Returns the first tick's
+    host ms."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.hardware.mavlink_adapter import MavlinkVehicleIO
+    from dart_planner_tpu_torch.hardware.mission import MissionConfig, MissionRunner
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    vehicle = MavlinkVehicleIO({}, mavutil=ScriptedMavlink(MAVLINK_GOAL), device=dev)
+    asyncio.run(vehicle.connect())
+    runner = MissionRunner(vehicle, MissionConfig(), planner=se3_mpc.SE3MPCPlanner(device=dev))
+    runner._waypoints = [np.asarray(MAVLINK_GOAL)]
+    runner.state.active, runner._t0 = True, time.time()
+    asyncio.run(runner._planning_tick())
+    t0 = time.perf_counter()
+    runner._control_tick()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(3):
+        runner._control_tick()
+    torch.cuda.synchronize()
+    return cold_ms
+
+
+def mavlink_phase(dev, card: str) -> dict:
+    """Phase 17a, the MAVLink mission: ``start_mission`` over the port's
+    ``MavlinkVehicleIO`` on the card, its link the scripted stand-in
+    (:class:`ScriptedMavlink`, the vehicle walking to MAVLINK_GOAL in
+    MAVLINK_TRAVEL_S of wall clock), at the default ``MissionConfig`` (400 Hz
+    control, 50 Hz planning, 0.5 s heartbeat timeout) with a 60 s mission
+    timeout and an ``SE3MPCPlanner`` at the default config on the card;
+    the launch counts set to 0 just before and read just after. Every plan
+    is timed by CUDA events around ``plan_trajectory``, every control tick
+    likewise (:class:`_TimedControlTicks`); the first solve is held
+    against the plain path. Phase 17b: the same link stops heartbeating
+    after 0.5 s, and the safety monitor must ground a mission toward a
+    far goal with 'heartbeat lost'."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.hardware.mavlink_adapter import MavlinkVehicleIO
+    from dart_planner_tpu_torch.hardware.mission import (MissionConfig, MissionRunner,
+                                                        start_mission)
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    t_phase = time.perf_counter()
+    cold_ms = warm_external_tick(dev)
+    link = ScriptedMavlink(MAVLINK_GOAL, travel_s=MAVLINK_TRAVEL_S)
+    vehicle = MavlinkVehicleIO({"connection_string": "udp:mock"}, mavutil=link, device=dev)
+    check(vehicle.device == dev, f"17a: the vehicle is on {vehicle.device}")
+    config = MissionConfig(mission_timeout_s=60.0)
+    planner = se3_mpc.SE3MPCPlanner(device=dev)
+    plan_pairs, rec = [], []
+    plan = planner.plan_trajectory
+
+    def timed_plan(state, goal):
+        start = _event_pair()
+        traj = plan(state, goal)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        plan_pairs.append((start, end))
+        return traj
+
+    planner.plan_trajectory = timed_plan
+
+    async def fly():
+        await vehicle.connect()
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+        t0 = time.perf_counter()
+        report = await start_mission(vehicle, [MAVLINK_GOAL], config=config, planner=planner)
+        torch.cuda.synchronize()
+        return report, time.perf_counter() - t0, {"B1": cuda_mpc.LAUNCHES,
+                                                  "B2": cuda_rollout.LAUNCHES}
+
+    ticks = _TimedControlTicks()
+    restore = record_first_solve(rec)
+    try:
+        report, wall, launches = asyncio.run(fly())
+    finally:
+        restore()
+        ticks.restore()
+    plan_ms, tick_ms = _elapsed(plan_pairs), _elapsed(ticks.pairs)
+    plans = len(plan_ms)
+    ctl = report["scheduler"]["tasks"]["control"]
+    check(report["mission_complete"] and report["waypoints_reached"] == 1,
+          f"17a: the MAVLink mission did not complete: {report}")
+    check(report["planning_failures"] == 0 and planner.emergency_plans == 0,
+          f"17a: {report['planning_failures']} planning failures, "
+          f"{planner.emergency_plans} emergency plans")
+    sent = np.array([a[5:9] for a in link.targets], np.float64)
+    check(len(sent) > 10 and np.isfinite(sent).all(),
+          f"17a: {len(sent)} body-rate targets sent, finite: {np.isfinite(sent).all()}")
+    check(plans > 0 and plans == len(ticks.runner.state.planning_times_ms),
+          f"17a: {plans} calls of plan_trajectory, "
+          f"{len(ticks.runner.state.planning_times_ms)} plans recorded")
+    check(launches == {"B1": 2 * plans, "B2": 0},
+          f"17a: launches {launches}, not 2 x {plans} plans of B1 and none of B2")
+    dpos = plain_gap(rec, "17a")
+    check(dpos <= 1e-3, f"17a: the first MAVLink plan, positions max |kernel - plain| "
+          f"{dpos:.3g} m > 1e-3")
+    per_tick = external_tick_profile(ticks.runner)
+    print(f"[17a mavlink mission] ({card}) start_mission over MavlinkVehicleIO on {dev} (a "
+          f"scripted link, the vehicle at {MAVLINK_GOAL} after {MAVLINK_TRAVEL_S:g} s), "
+          f"MissionConfig(mission_timeout_s=60) (control {config.control_frequency:.0f} Hz, "
+          f"planning {config.planning_frequency:.0f} Hz, heartbeat "
+          f"{config.heartbeat_timeout_s:g} s), SE3MPCConfig(), after a warm-up (the first "
+          f"external tick {cold_ms:.1f} ms, host clock): complete, "
+          f"{report['waypoints_reached']} waypoint, {plans} plans, launches {launches} "
+          f"({launches['B1'] / plans:g} of B1 a plan), {len(sent)} body-rate targets sent, "
+          f"all finite; wall {wall:.3f} s; plan (CUDA events around plan_trajectory) "
+          f"{_pcts(plan_ms)}; external control tick (CUDA events around the runner's tick: "
+          f"the state onto the card, smoother, controller, the host reads) {_pcts(tick_ms)}; "
+          f"a tick {per_tick['kernels']:.0f} kernel launches, {per_tick['reads']:.0f} host "
+          f"reads, {per_tick['writes']:.0f} host writes and {per_tick['ops']:.0f} top-level "
+          f"host ops (torch.profiler over "
+          f"{MAVLINK_PROFILE_TICKS} ticks); control task: {ctl['execution_count']} ticks at "
+          f"{ctl.get('achieved_frequency_hz', 0.0):.1f} Hz achieved of "
+          f"{config.control_frequency:.0f}, {ctl['overruns']} overruns (host clock); the first "
+          f"plan vs method='torch': positions max |diff| {dpos:.3g} m (1e-3)", flush=True)
+
+    # -- 17b: the heartbeat-loss failsafe --------------------------------
+    t1 = time.perf_counter()
+    dead = ScriptedMavlink((30.0, 0.0, 3.0), travel_s=1e6, heartbeat_until=0.5)
+
+    async def lose_link():
+        v = MavlinkVehicleIO({"connection_string": "udp:mock"}, mavutil=dead, device=dev)
+        await v.connect()
+        runner = MissionRunner(v, MissionConfig(heartbeat_timeout_s=1.0, mission_timeout_s=60.0),
+                               planner=planner)
+        return await runner.start_mission([(30.0, 0.0, 3.0)])
+
+    planner.plan_trajectory = plan
+    lost = asyncio.run(lose_link())
+    check(not lost["mission_complete"] and lost["failsafe_reason"] == "heartbeat lost",
+          f"17b: the heartbeat-loss mission: complete {lost['mission_complete']}, "
+          f"failsafe {lost['failsafe_reason']!r}")
+    print(f"[17b heartbeat loss] ({card}) the link's heartbeats stop after 0.5 s: failsafe "
+          f"{lost['failsafe_reason']!r}, mission complete {lost['mission_complete']}, "
+          f"{lost['commands_sent']} body-rate targets before it, "
+          f"{time.perf_counter() - t1:.1f} s (host clock); phase 17a-b "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches["B1"], "plans": plans, "per_plan": launches["B1"] / plans,
+            "parity_m": dpos, "plan_ms": plan_ms, "tick_ms": tick_ms, "wall_s": wall,
+            "control_hz": ctl.get("achieved_frequency_hz", 0.0), "per_tick": per_tick,
+            "cold_ms": cold_ms}
+
+
+def secure_phase(dev, card: str) -> dict:
+    """Phase 17c, the secure channel: ``SecureHardwareInterface`` over
+    ``SimulatedVehicleIO`` on the card and a fresh ``AuthManager`` with an
+    operator and a viewer. The operator's RS256 token connects, arms and
+    takes off, and the vehicle climbs SECURE_TICKS ticks of its takeoff
+    plan (from the ground the planner returns its hover plan); a plan from
+    the vehicle's state to SECURE_GOAL by
+    ``SE3MPCPlanner`` on the card (the launch counts set to 0 just before
+    and read just after; held against the plain path) is uploaded through
+    ``send_secure_command(..., "send_trajectory", ...)``, and the vehicle
+    flies SECURE_TICKS ticks of it. Then the gate: the viewer's ``arm`` is
+    refused and audited 'denied'; after an emergency stop an upload is
+    audited 'blocked_estop'; disengaging takes the operator's password."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.common.device import to_host
+    from dart_planner_tpu_torch.common.errors import SecurityError
+    from dart_planner_tpu_torch.hardware.secure_interface import SecureHardwareInterface
+    from dart_planner_tpu_torch.hardware.simulated_vehicle import SimulatedVehicleIO
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning import se3_mpc
+    from dart_planner_tpu_torch.security.auth import AuthManager, Role
+
+    t_phase = time.perf_counter()
+    auth = AuthManager()
+    auth.register_user("op", "pw-op-123", Role.OPERATOR)
+    auth.register_user("watch", "pw-watch-1", Role.VIEWER)
+    op = auth.create_access_token(auth.authenticate("op", "pw-op-123"))
+    viewer = auth.create_access_token(auth.authenticate("watch", "pw-watch-1"))
+    vehicle = SimulatedVehicleIO(device=dev)
+    check(vehicle.device == dev, f"17c: the vehicle is on {vehicle.device}")
+    shi = SecureHardwareInterface(vehicle, auth)
+    planner = se3_mpc.SE3MPCPlanner(device=dev)
+    goal = np.asarray(SECURE_GOAL)
+    rec = []
+
+    async def fly():
+        check(await shi.connect(op), "17c: connect refused")
+        check(await shi.send_secure_command(op, "arm"), "17c: arm failed")
+        check(await shi.send_secure_command(op, "takeoff", {"altitude": 2.0}),
+              "17c: takeoff failed")
+        for _ in range(SECURE_TICKS):
+            vehicle.step()
+        state = vehicle.get_state()
+        start_gap = float(np.linalg.norm(to_host(state.position) - goal))
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+        restore = record_first_solve(rec)
+        try:
+            t0 = _event_pair()
+            traj = planner.plan_trajectory(state, SECURE_GOAL)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = {"B1": cuda_mpc.LAUNCHES, "B2": cuda_rollout.LAUNCHES}
+        check(await shi.send_secure_command(op, "send_trajectory", {"trajectory": traj}),
+              "17c: the trajectory upload failed")
+        w0 = time.perf_counter()
+        for _ in range(SECURE_TICKS):
+            vehicle.step()
+        end = to_host(vehicle.get_state().position)
+        flight_s = time.perf_counter() - w0
+        # the gate
+        try:
+            await shi.send_secure_command(viewer, "arm")
+            check(False, "17c: the viewer's arm was accepted")
+        except SecurityError:
+            pass
+        check(await shi.emergency_stop(viewer), "17c: the emergency stop failed")
+        try:
+            await shi.send_secure_command(op, "send_trajectory", {"trajectory": traj})
+            check(False, "17c: a trajectory upload passed the engaged emergency stop")
+        except SecurityError:
+            pass
+        try:
+            shi.disengage_emergency_stop(op, "op", "wrong")
+            check(False, "17c: the emergency stop disengaged without re-authentication")
+        except SecurityError:
+            pass
+        check(shi.disengage_emergency_stop(op, "op", "pw-op-123"),
+              "17c: re-authenticated disengage refused")
+        return start_gap, end, t0.elapsed_time(t1), launches, flight_s
+
+    start_gap, end, plan_ms, launches, flight_s = asyncio.run(fly())
+    end_gap = float(np.linalg.norm(end - goal))
+    audit = [(e["command_type"], e["status"]) for e in shi.get_command_audit_log(op)]
+    check(launches == {"B1": 2, "B2": 0}, f"17c: launches {launches} for one plan, not 2 of B1")
+    dpos = plain_gap(rec, "17c")
+    check(dpos <= 1e-3, f"17c: the uploaded plan, positions max |kernel - plain| "
+          f"{dpos:.3g} m > 1e-3")
+    check(planner.emergency_plans == 0, "17c: the planner returned its hover plan")
+    check(np.isfinite(end).all() and end_gap < start_gap,
+          f"17c: the vehicle ended {end_gap:.3f} m from the goal, from {start_gap:.3f}")
+    for entry in (("send_trajectory", "executed"), ("arm", "denied"),
+                  ("send_trajectory", "blocked_estop"), ("disengage_estop", "denied"),
+                  ("disengage_estop", "executed")):
+        check(entry in audit, f"17c: {entry} not in the audit log {audit}")
+    print(f"[17c secure channel] ({card}) SecureHardwareInterface over SimulatedVehicleIO on "
+          f"{dev}, RS256 tokens (an operator, a viewer): connect, arm, takeoff and "
+          f"{SECURE_TICKS} ticks of its climb, a plan to "
+          f"{SECURE_GOAL} (SE3MPCConfig(), {plan_ms:.3f} ms by CUDA events, launches "
+          f"{launches}) uploaded through send_secure_command; {SECURE_TICKS} ticks in "
+          f"{flight_s:.3f} s (host clock): {start_gap:.3f} -> {end_gap:.3f} m from the goal; "
+          f"the plan vs method='torch': positions max |diff| {dpos:.3g} m (1e-3); the "
+          f"viewer's arm denied, an upload under the emergency stop blocked_estop, disengage "
+          f"refused without the password and done with it; {len(audit)} audit entries, "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+    return {"launches": launches["B1"], "per_plan": launches["B1"], "parity_m": dpos,
+            "plan_ms": plan_ms, "vehicle": vehicle}
+
+
+class MockAirSimClient:
+    """An AirSim RPC client stand-in (tests/test_hardware_extended.py's, with a
+    tilted, yawed orientation and non-zero rates): it records every call."""
+
+    class _Future:
+        def join(self):
+            return None
+
+    def __init__(self):
+        self.calls = []
+        self.api_control = False
+        self.armed = False
+
+    def confirmConnection(self):
+        self.calls.append("confirm")
+
+    def enableApiControl(self, on, name=""):
+        self.api_control = on
+
+    def armDisarm(self, arm, name=""):
+        self.armed = arm
+
+    def getMultirotorState(self, name=""):
+        import math
+        from types import SimpleNamespace
+
+        def vec(x, y, z):
+            return SimpleNamespace(x_val=x, y_val=y, z_val=z)
+
+        # NED roll 0.1, pitch -0.2, yaw 0.7, composed as AirSim's quaternion
+        r, p, y = 0.05, -0.1, 0.35
+        quat = SimpleNamespace(
+            w_val=math.cos(r) * math.cos(p) * math.cos(y) + math.sin(r) * math.sin(p) * math.sin(y),
+            x_val=math.sin(r) * math.cos(p) * math.cos(y) - math.cos(r) * math.sin(p) * math.sin(y),
+            y_val=math.cos(r) * math.sin(p) * math.cos(y) + math.sin(r) * math.cos(p) * math.sin(y),
+            z_val=math.cos(r) * math.cos(p) * math.sin(y) - math.sin(r) * math.sin(p) * math.cos(y))
+        return SimpleNamespace(kinematics_estimated=SimpleNamespace(
+            position=vec(1.25, 2.5, -3.125),
+            linear_velocity=vec(0.1, 0.2, -0.3),
+            angular_velocity=vec(0.01, -0.02, 0.03),
+            orientation=quat))
+
+    def moveByAngleRatesThrottleAsync(self, *a, **kw):
+        self.calls.append(("rates", a))
+        return self._Future()
+
+    def takeoffAsync(self, **kw):
+        self.calls.append("takeoff")
+        return self._Future()
+
+    def moveToZAsync(self, *a, **kw):
+        self.calls.append(("z", a))
+        return self._Future()
+
+    def landAsync(self, **kw):
+        self.calls.append("land")
+        return self._Future()
+
+    def hoverAsync(self, name=""):
+        self.calls.append("hover")
+        return self._Future()
+
+    def simPause(self, on):
+        self.calls.append(("pause", on))
+
+
+def airsim_phase(dev, card: str) -> None:
+    """Phase 17d: ``AirSimVehicleIO`` over :class:`MockAirSimClient` on the
+    card connects, takes off, polls and lands, and sends one control
+    command; the polled state equals the CPU adapter's bit for bit (the
+    timestamps aside), and both send the same command."""
+    import asyncio
+
+    import torch
+
+    from dart_planner_tpu_torch.common.types import ControlCommand
+    from dart_planner_tpu_torch.hardware.airsim_interface import AirSimVehicleIO
+
+    async def drive(device):
+        client = MockAirSimClient()
+        vio = AirSimVehicleIO(client=client, device=device)
+        await vio.connect()
+        await vio.takeoff(3.0)
+        st = await vio.poll_state()
+        cmd = ControlCommand(thrust=torch.tensor(12.5, device=device),
+                             torque=torch.tensor([0.1, -0.2, 0.3], device=device))
+        sent = await vio.iface.send_control_command(cmd)
+        await vio.land()
+        return vio, st, sent, client
+
+    vio, st, sent, client = asyncio.run(drive(dev))
+    _, cpu, cpu_sent, cpu_client = asyncio.run(drive("cpu"))
+    fields = ("position", "velocity", "attitude", "angular_velocity")
+    check(all(getattr(st, f).device == dev for f in fields), "17d: the state is not on the card")
+    same = all(torch.equal(getattr(st, f).cpu(), getattr(cpu, f)) for f in fields)
+    check(same, "17d: the card's polled state differs from the CPU adapter's")
+    check(sent and cpu_sent and client.calls == cpu_client.calls,
+          f"17d: commands {client.calls} vs the CPU's {cpu_client.calls}")
+    check(not vio.iface.armed and vio.get_status()["connected"],
+          f"17d: status after landing {vio.get_status()}")
+    print(f"[17d airsim] ({card}) AirSimVehicleIO over a mock client on {dev}: connect, "
+          f"takeoff, poll, one control command, land; the polled state equals the CPU "
+          f"adapter's bit for bit (position {st.position.cpu().tolist()}, attitude "
+          f"{st.attitude.cpu().tolist()}), the same {len(client.calls)} client calls",
+          flush=True)
+
+
+def _loop_fn(state):
+    """The process loop's host function (module level: no closure over the
+    parent's tensors): speed and altitude of a host state."""
+    import numpy as np
+
+    return {"speed": float(np.linalg.norm(state["velocity"])),
+            "altitude": float(state["position"][2])}
+
+
+def process_loop_phase(dev, card: str, vehicle) -> None:
+    """Phase 17e: with CUDA started in this process, ``ProcessControlLoop``
+    runs :func:`_loop_fn` on the host at PROCESS_LOOP_HZ for PROCESS_LOOP_S,
+    fed a ``DroneState`` read from the card through ``to_host``; it returns
+    outputs, reports no error, and stops."""
+    from dart_planner_tpu_torch.common.device import to_host
+    from dart_planner_tpu_torch.runtime.multiprocess_loop import ProcessControlLoop
+
+    st = vehicle.get_state()
+    check(st.position.device == dev, f"17e: the state is on {st.position.device}")
+    host = {k: to_host(getattr(st, k)) for k in ("position", "velocity")}
+    loop = ProcessControlLoop(_loop_fn, frequency_hz=PROCESS_LOOP_HZ)
+    t0 = time.perf_counter()
+    loop.start()
+    try:
+        loop.send_state(host)
+        outputs = 0
+        while time.perf_counter() - t0 < PROCESS_LOOP_S:
+            before = loop.last_output
+            out = loop.get_output(timeout=0.05)
+            outputs += out is not None and out is not before
+        running = loop.running
+    finally:
+        loop.stop()
+    want = _loop_fn(host)
+    check(loop.error is None, f"17e: the process loop reported {loop.error}")
+    check(running and not loop.running, f"17e: running {running}, after stop {loop.running}")
+    check(loop.last_output == want, f"17e: output {loop.last_output}, expected {want}")
+    print(f"[17e process loop] ({card}) ProcessControlLoop at {PROCESS_LOOP_HZ:g} Hz for "
+          f"{PROCESS_LOOP_S:g} s after CUDA started here, fed the secure phase's state read "
+          f"from {dev}: {outputs} output reads, last {loop.last_output}, no error, stopped; "
+          f"{time.perf_counter() - t0:.2f} s (host clock)", flush=True)
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -2709,6 +3307,13 @@ def run(baseline_source=None) -> dict:
     di = di_planner_phase(dev, card)
     demo = web_demo_phase(dev, card)
     print(f"[16 front door] ({card}) {time.perf_counter() - t16:.1f} s (host clock)", flush=True)
+    # -- 17. the MAVLink mission, the secure channel, AirSim, the process loop
+    t17 = time.perf_counter()
+    mav = mavlink_phase(dev, card)
+    secure = secure_phase(dev, card)
+    airsim_phase(dev, card)
+    process_loop_phase(dev, card, secure["vehicle"])
+    print(f"[17 adapters] ({card}) {time.perf_counter() - t17:.1f} s (host clock)", flush=True)
 
     replans = mc_config().num_replans
     return {
@@ -2729,19 +3334,25 @@ def run(baseline_source=None) -> dict:
                                          deploy["launches"],
                                      "onboard": onboard["launches"],
                                      "di_planner": di["launches"],
-                                     "web_demo": demo["launches"]},
+                                     "web_demo": demo["launches"],
+                                     "mavlink_mission": mav["launches"],
+                                     "secure_interface": secure["launches"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
                                        "cloud_replan": deploy["launches"] / deploy["plans"],
                                        "onboard_replan": onboard["per_replan"],
                                        "di_planner_plan": di["per_plan"],
-                                       "web_demo_replan": demo["per_plan"]},
+                                       "web_demo_replan": demo["per_plan"],
+                                       "mavlink_replan": mav["per_plan"],
+                                       "secure_plan": secure["per_plan"]},
                 "mission_max_abs_err_m": dpos_mission,
                 "cloud_max_abs_err_m": deploy["parity_m"],
                 "onboard_max_abs_err_m": onboard["parity_m"],
                 "di_planner_max_abs_err_m": di["parity_m"],
                 "web_demo_max_abs_err_m": demo["parity_m"],
+                "mavlink_max_abs_err_m": mav["parity_m"],
+                "secure_interface_max_abs_err_m": secure["parity_m"],
                 "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"]),
                 "ms": b1["ms"],
                 "device_ms": b1["device_ms"],

@@ -2,9 +2,11 @@
 :mod:`dart_planner_tpu.hardware`): a ``VehicleIO`` ABC + factory, the
 pure-software simulated vehicle, physics-based motor mixing and models, the
 mission runner, the state-level safety manager, the heartbeat safety
-watchdog and the transport-delay buffer. The MAVLink and AirSim adapters,
-the secure interface, the mixing schema and the motor calibration are not
-ported yet."""
+watchdog, the transport-delay buffer, the motor latency calibration, the
+auth-gated secure command channel, the motor-mixing schema, and the AirSim
+and MAVLink adapters. The adapters' clients are import-gated (``airsim``,
+``pymavlink``) and injectable; their states live on the card unless a
+``device`` is given."""
 
 from dart_planner_tpu_torch.hardware.vehicle_io import (
     VehicleIO,
@@ -53,4 +55,37 @@ __all__ = [
     "LatencyBuffer",
     "SafetyLimits",
     "SafetyManager",
+]
+from dart_planner_tpu_torch.hardware.motor_calibration import (  # noqa: E402
+    CalibrationResult,
+    MotorLatencyCalibrator,
+    calibrate_motor_latency,
+)
+from dart_planner_tpu_torch.hardware.secure_interface import (  # noqa: E402
+    ConnectionState,
+    SecureHardwareInterface,
+    create_secure_interface,
+)
+from dart_planner_tpu_torch.hardware.airsim_interface import (  # noqa: E402
+    AirSimConfig,
+    AirSimDroneInterface,
+    AirSimVehicleIO,
+)
+from dart_planner_tpu_torch.hardware.mixing_schema import (  # noqa: E402
+    MotorMixingModel,
+    validate_motor_mixing,
+)
+
+__all__ += [
+    "CalibrationResult",
+    "MotorLatencyCalibrator",
+    "calibrate_motor_latency",
+    "ConnectionState",
+    "SecureHardwareInterface",
+    "create_secure_interface",
+    "AirSimConfig",
+    "AirSimDroneInterface",
+    "AirSimVehicleIO",
+    "MotorMixingModel",
+    "validate_motor_mixing",
 ]

@@ -156,7 +156,13 @@ class MissionRunner:
     def _check_arrival(self, state: DroneState) -> None:
         """Waypoint sequencing at control rate — a fast fly-through must
         not slip between two 50 Hz planning ticks (the reference only
-        ever aims at waypoints[-1], PX:304, so it never has this race)."""
+        ever aims at waypoints[-1], PX:304, so it never has this race).
+        Once the mission is done, a later check (the planning tick's, after
+        the control tick's) counts nothing: the JAX package's counts the
+        final waypoint again, and its report then calls the mission
+        incomplete."""
+        if self._mission_done.is_set():
+            return
         pos = state.position.cpu().numpy()
         goal = self._waypoints[self.state.waypoint_index]
         if np.linalg.norm(pos - goal) < self.config.waypoint_tolerance:

@@ -1,7 +1,7 @@
 """Host runtime: the planner-to-actuator fast path, the C++ real-time
 executor bindings, the cooperative asyncio scheduler and the real-time
-integration layer (PyTorch counterpart of :mod:`dart_planner_tpu.runtime`).
-The multi-process loop is not ported yet."""
+integration layer, and the multi-process loop (PyTorch counterpart of
+:mod:`dart_planner_tpu.runtime`)."""
 
 from dart_planner_tpu_torch.runtime.scheduler import (
     QuarticScheduler,

@@ -5,6 +5,7 @@ raise the error of ``common/device.py::default_device``, which names
 body whether a card is visible."""
 
 import socket
+from unittest.mock import MagicMock
 
 import numpy as np
 import pytest
@@ -16,7 +17,13 @@ from dart_planner_tpu_torch.apps.cloud import ThreeLayerCloudController
 from dart_planner_tpu_torch.apps.edge import EdgeConfig, EdgeController
 from dart_planner_tpu_torch.apps.web_demo import DemoEngine
 from dart_planner_tpu_torch.common.di import create_default_container
-from dart_planner_tpu_torch.hardware import SafetyManager, VehicleIOFactory
+from dart_planner_tpu_torch.hardware import (
+    AirSimDroneInterface,
+    AirSimVehicleIO,
+    SafetyManager,
+    VehicleIOFactory,
+)
+from dart_planner_tpu_torch.hardware.mavlink_adapter import MavlinkVehicleIO
 from dart_planner_tpu_torch.common import device as D
 from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.control.geometric import (
@@ -96,6 +103,10 @@ ENTRY_POINTS = {
     "DI container SE3MPCPlanner": lambda: create_default_container().resolve(
         se3_mpc.SE3MPCPlanner).device,
     "DemoEngine": lambda: DemoEngine().device,
+    # the hardware adapters (their clients injected)
+    "MavlinkVehicleIO": lambda: MavlinkVehicleIO(mavutil=MagicMock()).device,
+    "AirSimVehicleIO": lambda: AirSimVehicleIO(client=MagicMock()).device,
+    "AirSimDroneInterface": lambda: AirSimDroneInterface(client=MagicMock()).device,
 }
 
 

@@ -25,7 +25,7 @@ clock, so the completing missions keep the JAX tests' one retry. Their
 planner is ``SE3MPCConfig(max_iterations=4, gn_warmup_iterations=2,
 tail_iterations=0)``: about 21 ms a plan on a CPU against about 130 ms at
 the default config, which at 10 Hz would starve the asyncio loop. The
-MAVLink cases wait for the port's ``mavlink_adapter``.
+MAVLink cases are in tests/test_torch_hardware_adapters.py.
 """
 
 import asyncio
@@ -266,6 +266,27 @@ def _run_sim_mission():
     assert report["commands_sent"] > 50
     assert report["telemetry_rows"] > 3
     assert report["scheduler"]["tasks"]["control"]["execution_count"] > 50
+
+
+def test_final_waypoint_counts_once_unlike_jax():
+    """A second arrival check after the final waypoint (the planning tick's,
+    after the control tick's, before the loops stop) counts nothing in the
+    port; the JAX package counts it again and then reports the mission
+    incomplete (ROADMAP C, reference fault 17)."""
+    goal = (1.0, 0.0, 2.0)
+    port = MissionRunner(_sim_vehicle(), _fast_config(), planner=_planner())
+    jax_runner = J_mission.MissionRunner(JSim({"initial_position": (0.0, 0.0, 2.0)}),
+                                         J_mission.MissionConfig())
+    at_goal = DroneState.create(position=goal, device="cpu")
+    j_at_goal = JDroneState.create(position=goal)
+    for runner, state in ((port, at_goal), (jax_runner, j_at_goal)):
+        runner._waypoints = [np.asarray(goal)]
+        runner._check_arrival(state)
+        runner._check_arrival(state)
+    assert port.state.waypoints_reached == 1
+    assert port.get_performance_report()["mission_complete"]
+    assert jax_runner.state.waypoints_reached == 2
+    assert not jax_runner.get_performance_report()["mission_complete"]
 
 
 def test_mission_requires_connection():

@@ -57,3 +57,31 @@ _JAX_IMPORT = re.compile(
 def test_source_never_imports_jax(path):
     found = _JAX_IMPORT.findall(path.read_text())
     assert not found, f"{path.name} imports jax, flax or the JAX package"
+
+
+# the JAX package's modules the port took last: each is scanned above
+LAST_MODULES = (
+    "hardware/mavlink_adapter.py", "hardware/airsim_interface.py",
+    "hardware/secure_interface.py", "hardware/mixing_schema.py",
+    "hardware/motor_calibration.py", "runtime/multiprocess_loop.py",
+    "gateway/__init__.py", "gateway/middleware.py",
+    *(f"security/{m}.py" for m in (
+        "auth", "permissions", "rate_limiter", "secure_files", "key_derivation",
+        "file_verification", "db", "manage_users", "key_manager", "credentials",
+        "credential_helpers", "os_keyring")),
+)
+
+
+def test_the_last_modules_are_ported_and_scanned():
+    """Every module of the JAX package has its counterpart (the two Pallas
+    files aside: their kernels are ``csrc/``), and the scans above cover the
+    ones ported last."""
+    jax_pkg = ROOT / "dart_planner_tpu"
+    ported = {p.relative_to(PKG) for p in PKG.rglob("*.py")}
+    for rel in LAST_MODULES:
+        assert PKG / rel in SOURCES, rel
+    missing = sorted(
+        str(rel) for rel in (p.relative_to(jax_pkg) for p in jax_pkg.rglob("*.py"))
+        if rel not in ported and rel.name not in ("pallas_mpc.py", "pallas_rollout.py")
+    )
+    assert not missing, missing

@@ -92,6 +92,27 @@ def test_scan_sees_the_front_door():
     assert RANK["config"] == 1
 
 
+NEW_MODULES = ("hardware/mavlink_adapter.py", "hardware/airsim_interface.py",
+               "hardware/secure_interface.py", "gateway/middleware.py",
+               "security/auth.py", "security/db.py", "security/key_manager.py",
+               "security/credentials.py", "security/file_verification.py",
+               "security/key_derivation.py", "security/os_keyring.py",
+               "security/secure_files.py")
+
+
+def test_scan_sees_the_adapters_security_and_gateway():
+    """The scan reaches the last modules of the JAX package that import
+    another subpackage: the hardware adapters, ``security/`` and
+    ``gateway/``, which keeps the JAX package's rank 1, beside
+    ``security``, and so may import it only inside a function."""
+    seen = {where.split(":")[0] for _, _, _, where in _scan()}
+    for path in NEW_MODULES:
+        assert f"{PKG}/{path}" in seen, path
+    assert "gateway" in SUBPACKAGES and RANK["gateway"] == RANK["security"] == 1
+    gateway = [(target, toplevel) for sub, target, toplevel, _ in _scan() if sub == "gateway"]
+    assert all(not toplevel for target, toplevel in gateway if target == "security")
+
+
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_module_level_layering(sub):
     violations = [
