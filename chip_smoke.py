@@ -65,7 +65,14 @@ the mission grounded (17b); the secure channel's RS256-gated upload of a
 B1 plan to the simulated vehicle on the card, against the plain path, and
 its denials, emergency-stop latch and re-authentication (17c); the AirSim
 adapter on the card against the CPU's, bit for bit (17d); and the process
-loop run after CUDA started here, fed a state read from the card (17e).
+loop run after CUDA started here, fed a state read from the card (17e); and
+kernel B1 at three and four horizon steps a lane (phase 18, run after
+phase 13, before the mission phases' traces and 17e's fork): one Newton
+round at N = 65, 80, 100 and 128 against the plain version, scenario by
+scenario (18a), the two-phase solve at N = 80 and 100 (18b), the DI planner
+under ``DART_PREDICTION_HORIZON`` = 80 and 100 (18c), and B1's times at N =
+20, 40, 80 and 100, B=4096 and B=1, with its ptxas registers and spills for
+each steps-a-lane instantiation (18d).
 Phases 7 and 10 time the kernels against their plain versions with CUDA
 events, and the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -87,6 +94,7 @@ no CUDA device is visible. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import pathlib
@@ -659,6 +667,46 @@ def profile_summary(prof, wall: float) -> dict:
            for e in ops[:6] if _device_us(e) > 0]
     return {"wall": wall, "busy": busy_us / 1e6, "idle": 1.0 - busy_us / 1e6 / wall,
             "top": top}
+
+
+class _EventTimedLibrary:
+    """A kernel library whose ``mpc_solve_launch`` is bracketed by two CUDA
+    events on the launch's stream: their elapsed time is the kernel's own
+    device time, without the wrapper's host work and copies."""
+
+    def __init__(self, lib):
+        self.lib, self.pairs = lib, []
+
+    def mpc_solve_launch(self, *args):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = self.lib.mpc_solve_launch(*args)
+        end.record()
+        self.pairs.append((start, end))
+        return err
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def b1_alone_ms(config, prob, u0, reps: int = 7) -> float:
+    """Median device time of kernel B1 alone on ``prob`` by CUDA events
+    around each launch (after a warm-up launch), through the wrapper's own
+    flattening (``cuda_mpc.run_library``). Late in this script's run
+    torch.profiler has held 4 of 5 launches' records, and then none, so
+    phase 18d does not rely on it."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    timed = _EventTimedLibrary(cuda_mpc._library())
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(reps + 1):
+        cuda_mpc.run_library(lambda: timed, config, prob, u0, True, stream)
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in timed.pairs[1:])
 
 
 def kernel_device_ms(fn, kernel: str, reps: int = 5) -> float:
@@ -2425,6 +2473,27 @@ DEMO_FRAME_KEYS = {"type", "drone_state", "plan", "trajectory", "performance", "
                    "obstacles", "goal", "target", "status"}
 
 
+@contextlib.contextmanager
+def prediction_horizon_env(n: int):
+    """``DART_PREDICTION_HORIZON=n`` for the port's frozen config while the
+    block runs; the variable and the config singleton restored after."""
+    import os
+
+    from dart_planner_tpu_torch.config import reset_frozen_config
+
+    saved = os.environ.get("DART_PREDICTION_HORIZON")
+    os.environ["DART_PREDICTION_HORIZON"] = str(n)
+    reset_frozen_config()
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["DART_PREDICTION_HORIZON"]
+        else:
+            os.environ["DART_PREDICTION_HORIZON"] = saved
+        reset_frozen_config()
+
+
 def di_planner_phase(dev, card: str) -> dict:
     """Phase 16a, the config path: the DI container's ``SE3MPCPlanner``,
     built from ``get_frozen_config().planning.to_se3_config()`` on the card,
@@ -2433,8 +2502,6 @@ def di_planner_phase(dev, card: str) -> dict:
     after: 2 launches of B1, its positions within 1e-3 m of the plain path
     (15c's gate). Then a ``DART_PREDICTION_HORIZON=10`` override gives a
     planner with N=10, whose plan launches B1 too."""
-    import os
-
     import torch
 
     from dart_planner_tpu_torch import DroneState
@@ -2474,10 +2541,7 @@ def di_planner_phase(dev, card: str) -> dict:
     dpos = plain_gap(rec, "16a")
     check(dpos <= 1e-3, f"16a: the DI planner's plan, positions max |kernel - plain| "
           f"{dpos:.3g} m > 1e-3")
-    saved = os.environ.get("DART_PREDICTION_HORIZON")
-    os.environ["DART_PREDICTION_HORIZON"] = "10"
-    reset_frozen_config()
-    try:
+    with prediction_horizon_env(10):
         short = create_default_container().resolve(SE3MPCPlanner)
         check(short.config.prediction_horizon == 10 and short.device == dev,
               f"16a: the override gave N={short.config.prediction_horizon} on {short.device}")
@@ -2486,12 +2550,6 @@ def di_planner_phase(dev, card: str) -> dict:
         traj10 = short.plan_trajectory(state, sc["goal_pos"])
         torch.cuda.synchronize()
         launches10 = cuda_mpc.LAUNCHES
-    finally:
-        if saved is None:
-            del os.environ["DART_PREDICTION_HORIZON"]
-        else:
-            os.environ["DART_PREDICTION_HORIZON"] = saved
-        reset_frozen_config()
     check(launches10 == 2 and tuple(traj10.positions.shape) == (10, 3),
           f"16a: the N=10 planner launched B1 {launches10} times, plan "
           f"{tuple(traj10.positions.shape)}")
@@ -3226,6 +3284,287 @@ def process_loop_phase(dev, card: str, vehicle) -> None:
           f"{time.perf_counter() - t0:.2f} s (host clock)", flush=True)
 
 
+# the long horizons of phase 18: one CG-2 round at the third slot's first
+# step (65), inside it (80), in the fourth slot (100) and at a full fourth
+# slot (128); the full solve and the front door at 80 and 100; the times at
+# the default horizon, two slots, three and four
+LONG_ROUND_HORIZONS = (65, 80, 100, 128)
+LONG_SOLVE_HORIZONS = (80, 100)
+TIMED_HORIZONS = (20, 40, 80, 100)
+# the share of scenarios in which one CG-2 round of B1 may part from the
+# plain loop beyond phase 3b's limits at N > 64: float32 near-ties at a CG
+# break, the active set or the line search branch 1-3 scenarios of 4096 in
+# a round there (as phase 3b's own N=20 config does at another seed)
+LONG_ROUND_BRANCHES = 1e-3
+
+
+def share_within(x, limit: float, share: float, factor: float = 5.0) -> bool:
+    """All but ``share`` of ``x`` within ``limit``, and every value within
+    ``factor`` times it."""
+    return float((x > limit).float().mean()) <= share and float(x.max()) <= factor * limit
+
+
+def b1_round_scenarios(cfg_r, prob, u0) -> dict:
+    """One launch of kernel B1 against ``solve_thrusts_plain`` on the same
+    inputs, scenario by scenario: the largest |kernel - plain| of each
+    scenario's thrusts, positions and velocities, the relative difference
+    of the two iterates' exact (float64) costs, and the kernel's cost
+    against the exact cost of its own thrusts. A scenario is apart when it
+    is beyond phase 3b's limits (2e-3; 1e-4 relative)."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
+    pr = cuda_mpc.solve_thrusts_plain(cfg_r, prob, u0)
+    torch.cuda.synchronize()
+    dx = torch.stack([(kr[i] - pr[i]).abs().amax((-1, -2)) for i in (0, 2, 3)]).amax(0)
+    ek, ep = cuda_mpc.exact_cost(cfg_r, prob, kr[0]), cuda_mpc.exact_cost(cfg_r, prob, pr[0])
+    dx, ek, ep, ck, cp = (x.reshape(-1) for x in (dx, ek, ep, kr[4].double(),
+                                                  pr[4].double()))
+    c_pl = (ek - ep).abs() / ep.abs()
+    c_own = (ck - ek).abs() / ek.abs()
+    apart = ((dx > 2e-3) | (c_pl > 1e-4)).nonzero().flatten().tolist()
+    return {"finite": all(bool(torch.isfinite(x).all()) for x in kr), "B": dx.numel(),
+            "dx": float(dx.max()), "c_pl": float(c_pl.max()), "c_own": c_own,
+            "c_plain_own": float(((cp - ep).abs() / ep.abs()).max()),
+            "apart": [(i, float(dx[i]), float(c_pl[i]), float(ek[i]), float(ep[i]))
+                      for i in apart]}
+
+
+def check_round_scenarios(tag: str, e: dict) -> str:
+    """Phase 3b's limits in all but LONG_ROUND_BRANCHES of the scenarios;
+    the kernel's cost within 1e-5 of the exact cost of its own thrusts in
+    all but 1e-3 of them and within 5e-5 in every one. Returns the line."""
+    n_apart, c_own = len(e["apart"]), e["c_own"]
+    line = (f"{n_apart} of {e['B']} scenarios apart (beyond 2e-3 or exact costs 1e-4 rel; "
+            f"max |dx| {e['dx']:.3g}, cost rel {e['c_pl']:.3g}"
+            + "".join(f"; scenario {i}: |dx| {d:.3g}, exact cost kernel {a:.9g} plain {b:.9g}"
+                      for i, d, _, a, b in e["apart"][:3])
+            + f"); cost vs the exact cost of own thrusts p99.9 "
+              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g} (the plain "
+              f"loop's float32 cost: max {e['c_plain_own']:.3g})")
+    check(e["finite"], f"{tag}: non-finite kernel output")
+    check(n_apart <= LONG_ROUND_BRANCHES * e["B"],
+          f"{tag}: {n_apart} of {e['B']} scenarios beyond phase 3b's limits: {line}")
+    check(share_within(c_own, 1e-5, 1e-3), f"{tag}: {line}")
+    return line
+
+
+def ptxas_by_steps(log: str) -> dict:
+    """Kernel B1's ptxas figures for each instantiation, keyed by the horizon
+    steps a lane S: registers, stack frame and spill bytes, from the
+    ``-Xptxas -v`` lines of the build log."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"mpc_solve_kernelILi(\d+)E", m.group(1))
+            cur = int(k.group(1)) if k else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(stack_bytes=int(m.group(1)),
+                                           spill_stores=int(m.group(2)),
+                                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+def long_horizon_phase(dev, card: str) -> dict:
+    """Phase 18: kernel B1 at three and four horizon steps a lane.
+
+    18a: one Newton round at CG-2 with every hinge on, in both curvature
+    modes, with and without a per-scenario v_cap, on the bench batch at each
+    of LONG_ROUND_HORIZONS against the plain version, scenario by scenario
+    (:func:`check_round_scenarios`). 18b: the two-phase ``solve()`` at the
+    default budget at each of LONG_SOLVE_HORIZONS, B=4096, with the launch
+    count set to 0 just before and read just after: 2 launches, finite
+    thrusts inside their bounds, the kernel's costs against the exact costs
+    of its thrusts; its converged share and mean cost against
+    ``solve(method="torch")`` are printed beside phase 11's limits (0.002,
+    1e-3), which float32 does not hold at these horizons (ROADMAP C.21),
+    and beside the plain path's own on the CPU.
+    18c: the DI container's planner under ``DART_PREDICTION_HORIZON`` at the
+    same horizons, on the card with N from the frozen config, 2 launches a
+    plan, one CG-2 round of B1 on its recorded first problem against the
+    plain version; its plan's gap to the plain path printed beside 16a's
+    1e-3 m. 18d: the phase-1 solve at each of TIMED_HORIZONS, B=4096 and
+    B=1: with the wrapper (CUDA events), the kernel alone (torch.profiler),
+    the plain version, the bound and the share of it reached; and B1's
+    ptxas registers and spills for each S. N = MAX_HORIZON + 1 must raise
+    before any launch."""
+    import torch
+
+    from dart_planner_tpu_torch import DroneState
+    from dart_planner_tpu_torch.apps.web_demo import DEMO_SCENARIOS
+    from dart_planner_tpu_torch.common import frames
+    from dart_planner_tpu_torch.common.di import create_default_container
+    from dart_planner_tpu_torch.config import get_frozen_config
+    from dart_planner_tpu_torch.ops import _build, costs, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    t_phase = time.perf_counter()
+    base = se3_mpc.SE3MPCConfig()
+    gvec = frames.gravity_vector(frames.WorldFrame.ENU, base.gravity, device=dev)
+    err_rounds = []
+    for N in LONG_ROUND_HORIZONS:
+        cfg = base._replace(prediction_horizon=N, tail_iterations=0)
+        prob = bench_problem(se3_mpc, cfg, B_BENCH, N, dev)
+        u0 = se3_mpc.initialize_thrusts(cfg, prob)
+        probv = prob._replace(v_cap=torch.full((B_BENCH,), 3.0, dtype=torch.float32,
+                                               device=dev))
+        for label, pr in (("static", prob), ("v_cap=3", probv)):
+            act = hinge_activity(cfg, pr, u0, gvec)
+            check(all(n > 0 for n in act.values()),
+                  f"18a N={N} {label}: some hinge inactive at the cold start {act}")
+            for stage, n_gn in (("GN", 1), ("full", 0)):
+                cfg_r = cfg._replace(max_iterations=1, cg_iterations=2, gn_warmup_iterations=n_gn)
+                tag = f"18a N={N} one round {label} {stage}"
+                e = b1_round_scenarios(cfg_r, pr, u0)
+                print(f"[{tag}] B={B_BENCH} CG-2, active scenarios {act}: "
+                      f"{check_round_scenarios(tag, e)}", flush=True)
+                err_rounds.append(e["dx"])
+
+    launches = 0
+    solves = {}
+    for N in LONG_SOLVE_HORIZONS:
+        cfg = base._replace(prediction_horizon=N)
+        prob = bench_problem(se3_mpc, cfg, B_BENCH, N, dev)
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = 0
+        res = se3_mpc.solve(cfg, prob, method="auto")
+        torch.cuda.synchronize()
+        n = cuda_mpc.LAUNCHES
+        launches += n
+        check(n == 2, f"18b N={N}: solve() launched B1 {n} times, not 2")
+        for name, x in zip(res._fields, res):
+            if x is not None and x.dtype.is_floating_point:
+                check(bool(torch.isfinite(x).all()), f"18b N={N}: non-finite {name}")
+        lb, ub = cfg.thrust_bounds(device=dev)
+        check(bool(((res.thrusts >= lb - 1e-5) & (res.thrusts <= ub + 1e-5)).all()),
+              f"18b N={N}: thrusts outside thrust_bounds")
+        c_own = (res.cost.double() - cuda_mpc.exact_cost(cfg, prob, res.thrusts)).abs() / \
+            res.cost.double().abs()
+        check(share_within(c_own, 1e-5, 1e-3),
+              f"18b N={N}: cost vs the exact cost of its thrusts p99.9 "
+              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}")
+        ref = se3_mpc.solve(cfg, prob, method="torch")
+        check(cuda_mpc.LAUNCHES == n, f"18b N={N}: the plain path launched B1")
+        # the plain path against itself: the same solve on the CPU
+        ref_cpu = se3_mpc.solve(cfg, costs.Problem(*[None if x is None else x.cpu()
+                                                     for x in prob]), method="torch")
+        conv, conv_p = float(res.converged.float().mean()), float(ref.converged.float().mean())
+        conv_c = float(ref_cpu.converged.float().mean())
+        mc, mp, m_c = float(res.cost.mean()), float(ref.cost.mean()), float(ref_cpu.cost.mean())
+        rel, rel_c = abs(mc - mp) / abs(mp), abs(m_c - mp) / abs(mp)
+        held = abs(conv - conv_p) <= 0.002 and rel <= 1e-3
+        solves[N] = {"converged": conv, "converged_plain": conv_p, "converged_plain_cpu": conv_c,
+                     "mean_cost": mc, "mean_cost_plain": mp, "mean_cost_plain_cpu": m_c,
+                     "within_phase11_limits": held}
+        print(f"[18b N={N}] solve(method='auto') B={B_BENCH}: {n} launches, thrusts inside "
+              f"their bounds, cost vs the exact cost of its thrusts p99.9 "
+              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}; converged "
+              f"{conv:.4f} (plain path {conv_p:.4f}, apart {abs(conv - conv_p):.4f}; phase 11's "
+              f"0.002), mean cost {mc:.6g} (plain {mp:.6g}, rel {rel:.3g}; phase 11's 1e-3): "
+              + ("held" if held else "not held, float32 chaos at the full budget (ROADMAP "
+                 "C.21), not gated")
+              + f"; the plain path on the CPU: converged {conv_c:.4f} (apart from the card's "
+              f"{abs(conv_c - conv_p):.4f}), mean cost {m_c:.6g} (rel {rel_c:.3g})", flush=True)
+
+    sc = DEMO_SCENARIOS[DI_SCENARIO]
+    state = DroneState.create(position=sc["start_pos"], device=dev)
+    di = {}
+    for N in LONG_SOLVE_HORIZONS:
+        rec = []
+        with prediction_horizon_env(N):
+            planner = create_default_container().resolve(se3_mpc.SE3MPCPlanner)
+            check(planner.device == dev and planner.config.prediction_horizon == N
+                  and planner.config == get_frozen_config().planning.to_se3_config(),
+                  f"18c: DART_PREDICTION_HORIZON={N} gave N={planner.config.prediction_horizon} "
+                  f"on {planner.device}")
+            for o in sc["obstacles"]:
+                planner.add_obstacle(o["pos"], o["radius"])
+            restore = record_first_solve(rec)
+            try:
+                torch.cuda.synchronize()
+                cuda_mpc.LAUNCHES = 0
+                traj = planner.plan_trajectory(state, sc["goal_pos"])
+                torch.cuda.synchronize()
+                n = cuda_mpc.LAUNCHES
+            finally:
+                restore()
+        launches += n
+        check(n == 2, f"18c N={N}: {n} launches of B1 for the DI planner's plan, not 2")
+        check(tuple(traj.positions.shape) == (N, 3) and bool(torch.isfinite(traj.positions).all()),
+              f"18c N={N}: the plan is not finite ({N}, 3)")
+        cfg, prob, u_rec, _, _ = rec[0]
+        u0 = se3_mpc.initialize_thrusts(cfg, prob) if u_rec is None else u_rec
+        cfg_r = cfg._replace(max_iterations=1, cg_iterations=2, tail_iterations=0)
+        one = check_round_scenarios(f"18c N={N} one round",
+                                    b1_round_scenarios(cfg_r, prob, u0))
+        dpos = plain_gap(rec, f"18c N={N}")
+        di[N] = dpos
+        print(f"[18c N={N}] ({card}) the DI container's SE3MPCPlanner on {dev} under "
+              f"DART_PREDICTION_HORIZON={N} ({cfg.max_iterations} rounds, two-phase, "
+              f"{len(sc['obstacles'])} spheres): {n} B1 launches; one CG-2 round of B1 on its "
+              f"first problem vs plain: {one}; the plan vs method='torch': positions max "
+              f"|diff| {dpos:.3g} m (16a's 1e-3: "
+              + ("held" if dpos <= 1e-3 else "not held, float32 chaos at the full budget "
+                 "(ROADMAP C.21), not gated") + ")", flush=True)
+
+    long = base._replace(prediction_horizon=cuda_mpc.MAX_HORIZON + 1, tail_iterations=0)
+    one = bench_problem(se3_mpc, long, 1, 0, dev)
+    before = cuda_mpc.LAUNCHES
+    try:
+        cuda_mpc.solve_thrusts_fused(long, one, se3_mpc.initialize_thrusts(long, one))
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and cuda_mpc.LAUNCHES == before,
+          f"N={cuda_mpc.MAX_HORIZON + 1} did not raise before a launch")
+
+    ptxas = ptxas_by_steps(_build.build_log)
+    if _build.build_log:
+        check(sorted(ptxas) == [1, 2, 3, 4] and all(len(v) == 4 for v in ptxas.values()),
+              f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-4")
+    times = {}
+    fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
+    for N in TIMED_HORIZONS:
+        cfg = base._replace(prediction_horizon=N, tail_iterations=0)
+        for B in (B_BENCH, 1):
+            prob = bench_problem(se3_mpc, cfg, B, 0 if B > 1 else 1, dev)
+            u0 = se3_mpc.initialize_thrusts(cfg, prob)
+            t_k = cuda_time_ms(lambda: fused(cfg, prob, u0))
+            d_k = b1_alone_ms(cfg, prob, u0)
+            t_p = cuda_time_ms(lambda: plain(cfg, prob, u0), reps=3, warmup=1)
+            bnd, by = b1_bound(cfg, prob)
+            times[f"N{N}_B{B}"] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
+                                   "bound_by": by, "share": bnd / d_k}
+            print(f"[18d times] ({card}) phase-1 solve N={N} (S={-(-N // 32)}) B={B}, median "
+                  f"CUDA-event ms: kernel {t_k:.4f} (alone {d_k:.4f}, CUDA events around the "
+                  f"launch), plain "
+                  f"{t_p:.4f}, bound {bnd:.3g} ({by}; share of the kernel alone "
+                  f"{bnd / d_k:.3g})", flush=True)
+    times["ptxas"] = {f"S{s}": v for s, v in sorted(ptxas.items())}
+    times["solves"] = {f"N{N}": v for N, v in solves.items()}
+    print(f"[18 long horizons] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"B1 ptxas by steps a lane: "
+          + ("; ".join(f"S={s}: {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "
+                       f"{v.get('spill_stores')} / {v.get('spill_loads')} B spill stores / loads"
+                       for s, v in sorted(ptxas.items())) or "library reused, no build log")
+          + f"; N={cuda_mpc.MAX_HORIZON + 1} raises before a launch", flush=True)
+    return {"launches": launches, "max_abs_err": max(err_rounds), "times": times,
+            "di_max_abs_err_m": max(di.values())}
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -3295,6 +3634,12 @@ def run(baseline_source=None) -> dict:
     scen = scenarios_phase(dev, card)
     sweep = sweep_phase(dev, card)
     fig_launches = scen["launches"]["figure8"]
+    # -- 18. kernel B1 at three and four horizon steps a lane. It runs here,
+    # before the mission phases: after 14a's and 15a's traced flights
+    # torch.profiler saw no device time in 18d's kernel, and after 17e's
+    # fork the parent's first multithreaded LAPACK call (numpy's 100 x 100
+    # inverse in the N=100 cold start) hung (ROADMAP C.23)
+    lh = long_horizon_phase(dev, card)
     # -- 14. the three-layer mission stack: hardware mission, three-layer loop
     mission = mission_phase(dev, card)
     layers = three_layer_phase(dev, card, mission["per_plan"])
@@ -3336,7 +3681,8 @@ def run(baseline_source=None) -> dict:
                                      "di_planner": di["launches"],
                                      "web_demo": demo["launches"],
                                      "mavlink_mission": mav["launches"],
-                                     "secure_interface": secure["launches"]},
+                                     "secure_interface": secure["launches"],
+                                     "long_horizon": lh["launches"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
@@ -3353,7 +3699,9 @@ def run(baseline_source=None) -> dict:
                 "web_demo_max_abs_err_m": demo["parity_m"],
                 "mavlink_max_abs_err_m": mav["parity_m"],
                 "secure_interface_max_abs_err_m": secure["parity_m"],
-                "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"]),
+                "long_horizon_di_max_abs_err_m": lh["di_max_abs_err_m"],
+                "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"],
+                                   lh["max_abs_err"]),
                 "ms": b1["ms"],
                 "device_ms": b1["device_ms"],
                 "plain_ms": b1["plain_ms"],
@@ -3362,7 +3710,8 @@ def run(baseline_source=None) -> dict:
                 "library_ms": None,
                 "times": {**b1["times"], "fleet_131072": {
                     k: fleet[k] for k in ("ms", "ms_without_stats", "device_ms",
-                                          "bound_ms", "bound_by", "peak_bytes")}},
+                                          "bound_ms", "bound_by", "peak_bytes")},
+                          "long_horizon": lh["times"]},
             },
             {
                 "name": "tick_block (B2, closed-loop control and physics ticks)",

@@ -21,11 +21,19 @@
 // then a final exact rollout and cost pass. Everything runs in exact fp32
 // (the TPU kernel ran the CG matvec and the line-search deltas in bf16).
 //
-// Layout: one warp per scenario, lane k = horizon step k (a lane holds steps
-// k, k+32 when N > 32, in slots 0 and 1). Every per-step vector lives in
-// registers; lanes with k >= N hold exact zeros and free = 0. Per-scenario
-// sums use a __shfl_xor_sync butterfly, which leaves a bit-identical value
-// on every lane, so every branch decision is warp-uniform.
+// Layout: one warp per scenario, lane k = horizon step k; a lane holds S =
+// ceil(N / 32) steps, k, k+32, k+64, k+96, in slots 0..S-1, so N runs up to
+// 128 (the JAX kernel takes any N; both packages' front doors accept N <=
+// 100). At one or two steps a lane every per-step vector lives in
+// registers. At three or four, the per-step data that a CG step only reads
+// (the curvature blocks and free, 21 floats a step) and the goal and c0 live
+// in the warp's shared memory, laid out [slot][field][lane]: each lane reads
+// and writes only its own column, so a warp's access is 32 consecutive words
+// (no bank conflict) and needs no barrier. Lanes with k >= N hold exact
+// zeros and free = 0. Per-scenario sums use a __shfl_xor_sync butterfly,
+// which leaves a bit-identical value on every lane, so every branch decision
+// is warp-uniform. The line search's alphas, any count of them, follow the
+// two step vectors in the constant block.
 //
 // The constant maps are structured (ops/dynamics.py): S_v[k,j] = dt and
 // S_p[k,j] = dt^2 (k - j - 1/2) for j < k. So every map is applied as warp
@@ -54,7 +62,7 @@
 // in order when it loads them (a masked sphere adds exactly 0 to every sum),
 // and the sphere loops are unrolled by 4 so that their square roots and
 // divisions overlap. The only constants left are two step vectors (t and
-// diag H).
+// diag H) and the alphas.
 //
 // What bounds it (N=20, K=8 with 4 live spheres, the default budget of 12
 // rounds at CG-10 and 6 alphas). The work the function needs, counted in
@@ -69,11 +77,28 @@
 // B=4096 runs as two waves of such chains, ~0.29 ms each, so the 16 warps
 // of an SM slow each other's chain by only about a third.
 //
-// Occupancy: blocks of kWarps = 4 warps. __launch_bounds__ asks for 4
-// resident blocks (<= 128 registers) at one step a lane,
-// so B=4096 is 1024 blocks over 528 slots of 16 warps an SM: two waves, the
+// Occupancy: blocks of kWarps<S> warps. At one step a lane, 4 warps and
+// __launch_bounds__ asks for 4 resident blocks (<= 128 registers), so
+// B=4096 is 1024 blocks over 528 slots of 16 warps an SM: two waves, the
 // second 94% full. B=2048 at K=11 (the Monte-Carlo) is under one wave;
-// there the shorter dependent chain is what counts.
+// there the shorter dependent chain is what counts. At two steps, 4 warps
+// and 2 blocks (<= 255 registers); from three on, 2 warps and 4 blocks: 8
+// warps an SM, B=4096 in ~3.9 waves.
+//
+// Registers bound the steps a lane. Every per-step vector costs S x 3
+// registers, and ptxas read 118 registers at S=1 and 193 at S=2, ~75 more a
+// slot: all in registers, S=3 would need ~268 and S=4 ~343, past the 255 a
+// thread has, so the CG vectors and Hessian blocks would spill in every CG
+// step. From S=3 on the 27 read-mostly floats a step (a round's curvature
+// blocks and free, 21; the goal and c0, 6) live in the warp's shared
+// memory instead: ptxas reads 167 registers at S=3 and 218 at S=4, 0 spill
+// bytes (an H100, CUDA 12.8), for 27 x 4 B x 32 x S of shared memory a
+// warp (10.4 KB at S=3, 13.8 KB at S=4; a block of 2 warps 28 KB, 4
+// blocks an SM 111 KB of the 228 KB). The work grows with N (each scan's
+// shuffles with S, every other pass with the steps), and so does each
+// warp's chain, by S-1 carries a scan: at B=4096 the kernel alone takes
+// ~1.4 ms at N=40, ~2.4 ms at S=3 and ~3.1 ms at S=4 (chip_smoke.py
+// phase 18d).
 //
 // What it does not use, and why: no tensor cores (once the maps are scans no
 // product is left large enough for an mma tile, and a TF32 product would
@@ -87,8 +112,19 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // scenarios per block
-constexpr int kMaxAlphas = 8;
+constexpr int kMaxSteps = 4;  // horizon steps a lane: N <= 128
+
+// Scenarios (warps) per block at S steps a lane: 4, and 2 from three steps
+// on, where each warp holds 10-14 KB of shared memory; so a block stays
+// under the 48 KB every launch gets without cudaFuncSetAttribute, and 4
+// resident blocks still give 8 warps an SM.
+template <int S>
+constexpr int kWarps = S >= 3 ? 2 : 4;
+// Resident blocks an SM __launch_bounds__ asks for: 4 at one step a lane
+// (<= 128 registers), 2 at two (<= 255), 4 of 2 warps from three on
+// (<= 255).
+template <int S>
+constexpr int kMinBlocks = S == 2 ? 2 : 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 }  // namespace
@@ -98,8 +134,7 @@ struct MpcParams {
   int B, N, K;
   int n_gn, n_full, cg_iters, n_alpha;
   int use_obstacles, use_ground, use_vel_hinge, use_tilt, use_tnorm;
-  float alphas[kMaxAlphas];
-  float inv_m, hover, g_z;
+  float inv_m, inv_m_lo, hover, g_z;
   float w_p, w_pN, w_v, w_a, w_T;
   float w_obs, w_g, z_min, w_vb, v_max, w_tilt, tan_max, w_tn, u_max;
   float lb[3], ub[3];
@@ -110,6 +145,41 @@ namespace {
 
 template <int S>
 using Vec = float[S][3];
+
+// F floats for each of a lane's S steps, read as x[s][f]: registers at one
+// or two steps a lane; at three or four, this lane's column of a block of
+// the warp's shared memory laid out [slot][field][lane].
+template <int S, int F, bool Shared = (S >= 3)>
+struct Steps {
+  float v[S][F];
+  __device__ __forceinline__ float (&operator[](int s))[F] { return v[s]; }
+  __device__ __forceinline__ const float (&operator[](int s) const)[F] { return v[s]; }
+};
+
+template <int F>
+struct SharedRow {
+  float* p;
+  __device__ __forceinline__ float& operator[](int f) const { return p[32 * f]; }
+};
+
+template <int S, int F>
+struct Steps<S, F, true> {
+  float* p;  // slot 0, field 0 of this lane's column
+  __device__ __forceinline__ SharedRow<F> operator[](int s) const { return {p + 32 * F * s}; }
+};
+
+// The next S x F x 32 floats of a warp's shared arena as a Steps<S, F>
+// (registers at S <= 2, which take nothing from the arena).
+template <int S, int F>
+__device__ __forceinline__ Steps<S, F> take(float*& arena, int lane) {
+  if constexpr (S >= 3) {
+    const Steps<S, F> x{arena + lane};
+    arena += 32 * F * S;
+    return x;
+  } else {
+    return Steps<S, F>{};
+  }
+}
 
 __device__ __forceinline__ float wsum(float v) {
 #pragma unroll
@@ -247,7 +317,7 @@ __device__ __forceinline__ void pullback(const Vec<S>& zp, const Vec<S>& zv, flo
 
 // diag_j += sum_k (S_p/m)[k,j]^2 hp_k + (S_v/m)[k,j]^2 hv_k.
 template <int S>
-__device__ __forceinline__ void add_map_diagonal(const Vec<S>& hp, const Vec<S>& hv, float cp,
+__device__ __forceinline__ void add_map_diagonal(const Vec<S>& hp, const Steps<S, 3>& hv, float cp,
                                                  float cv, int lane, Vec<S>& diag) {
   Vec<S> h, r1, r2;
 #pragma unroll
@@ -270,11 +340,27 @@ __device__ __forceinline__ void add_map_diagonal(const Vec<S>& hp, const Vec<S>&
     for (int a = 0; a < 3; ++a) diag[s][a] += r2[s][a];
 }
 
+// u/m + g on axis a. inv_m_lo is what float32 rounding took off 1/m: without
+// it every acceleration is off by the same ~3e-8 relative, and the positions
+// drift by that times t^2 / 2 (5 um at 6.4 s, 24 um at 12.8 s), which the
+// hinge weights turn into ~2e-5 of the cost at N > 64. At one and two steps
+// a lane (t < 6.4 s) the drift stays inside every tolerance, and those
+// instantiations keep their arithmetic bit for bit.
+template <int S>
+__device__ __forceinline__ float accel(const MpcParams& P, float u, int a) {
+  const float g = a == 2 ? P.g_z : 0.f;
+  if constexpr (S >= 3) {
+    return fmaf(u, P.inv_m_lo, fmaf(u, P.inv_m, g));
+  } else {
+    return fmaf(u, P.inv_m, g);
+  }
+}
+
 // pos = p0 + t v0 + S_p a, vel = v0 + S_v a with a = u/m + g (the plain
 // loop's form: the sums run over accelerations, so hover thrust and gravity
 // cancel before they are summed); zeros at k >= N. c0 = p0 + t v0.
 template <int S>
-__device__ __forceinline__ void rollout(const MpcParams& P, int lane, const Vec<S>& c0,
+__device__ __forceinline__ void rollout(const MpcParams& P, int lane, const Steps<S, 3>& c0,
                                         const float (&v0)[3], const Vec<S>& u, Vec<S>& pos,
                                         Vec<S>& vel) {
   Vec<S> acc;
@@ -283,7 +369,7 @@ __device__ __forceinline__ void rollout(const MpcParams& P, int lane, const Vec<
     const bool valid = lane + 32 * s < P.N;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      acc[s][a] = valid ? fmaf(u[s][a], P.inv_m, a == 2 ? P.g_z : 0.f) : 0.f;
+      acc[s][a] = valid ? accel<S>(P, u[s][a], a) : 0.f;
   }
   forward_maps<S>(acc, P.dt * P.dt, P.dt, lane, pos, vel);
 #pragma unroll
@@ -312,7 +398,7 @@ __device__ __forceinline__ float step_weight(const MpcParams& P, int k) {
 template <int S>
 __device__ __forceinline__ float cost(const MpcParams& P, Spheres sp, int lane, float vmax,
                                       const Vec<S>& u, const Vec<S>& pos, const Vec<S>& vel,
-                                      const Vec<S>& goal) {
+                                      const Steps<S, 3>& goal) {
   float D = 0.f;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
@@ -322,7 +408,7 @@ __device__ __forceinline__ float cost(const MpcParams& P, Spheres sp, int lane, 
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const float pe = pos[s][a] - goal[s][a];
-      const float acc = u[s][a] * P.inv_m + (a == 2 ? P.g_z : 0.f);
+      const float acc = accel<S>(P, u[s][a], a);
       const float du = u[s][a] - (a == 2 ? P.hover : 0.f);
       D += wp * pe * pe + P.w_v * vel[s][a] * vel[s][a] + P.w_a * acc * acc +
            P.w_T * du * du;
@@ -362,15 +448,27 @@ __device__ __forceinline__ float cost(const MpcParams& P, Spheres sp, int lane, 
   return wsum(D);
 }
 
-// Per-round curvature data consumed by the CG matvec.
+// Per-round curvature data consumed by the CG matvec (21 floats a step).
 template <int S>
 struct Curv {
-  float h[S][6];    // position-space block: xx, yy, zz, xy, xz, yz
-  float hv[S][3];   // velocity-space diagonal
-  float tl[S][4];   // tilt: at, jx, jy, ct
-  float tn[S][5];   // thrust norm: an, nx, ny, nz, cn
-  float free[S][3];
+  Steps<S, 6> h;     // position-space block: xx, yy, zz, xy, xz, yz
+  Steps<S, 3> hv;    // velocity-space diagonal
+  Steps<S, 4> tl;    // tilt: at, jx, jy, ct
+  Steps<S, 5> tn;    // thrust norm: an, nx, ny, nz, cn
+  Steps<S, 3> free;
 };
+constexpr int kCurvFields = 6 + 3 + 4 + 5 + 3;
+
+// Shared floats a warp holds at S steps a lane: a round's Curv, then the
+// goal and c0 (none at S <= 2).
+template <int S>
+constexpr int kArenaFloats = S >= 3 ? 32 * S * (kCurvFields + 3 + 3) : 0;
+
+template <int S>
+__device__ __forceinline__ Curv<S> take_curv(float*& arena, int lane) {
+  return {take<S, 6>(arena, lane), take<S, 3>(arena, lane), take<S, 4>(arena, lane),
+          take<S, 5>(arena, lane), take<S, 3>(arena, lane)};
+}
 
 // out = free * (H + S_p^T h S_p + S_v^T hv S_v + tilt + thrust norm) (free * p)
 template <int S>
@@ -388,7 +486,7 @@ __device__ __forceinline__ void matvec(const MpcParams& P, int lane, float cp, f
     const int k = lane + 32 * s;
     const float w2p = 2.f * step_weight(P, k);
     const float w2v = k < P.N ? 2.f * P.w_v : 0.f;
-    const float* h = c.h[s];
+    const auto h = c.h[s];
     const float y0 = zp[s][0], y1 = zp[s][1], y2 = zp[s][2];
     zp[s][0] = (w2p + h[0]) * y0 + h[3] * y1 + h[4] * y2;
     zp[s][1] = h[3] * y0 + (w2p + h[1]) * y1 + h[5] * y2;
@@ -430,14 +528,15 @@ __device__ __forceinline__ void matvec(const MpcParams& P, int lane, float cp, f
 // One Newton round; updates u and min_imp in place.
 template <int S>
 __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int lane,
-                                             float vmax, bool full, const Vec<S>& c0,
-                                             const float (&v0)[3], const Vec<S>& goal,
-                                             const float (&dq)[S], Vec<S>& u, float& min_imp,
-                                             int cg_iters) {
+                                             float vmax, bool full, const Steps<S, 3>& c0,
+                                             const float (&v0)[3], const Steps<S, 3>& goal,
+                                             const float (&dq)[S],
+                                             const float* __restrict__ alphas, float* arena,
+                                             Vec<S>& u, float& min_imp, int cg_iters) {
   const int N = P.N;
   const float cv = P.dt * P.inv_m, cp = P.dt * cv;
   const float wq = 2.f * (P.w_a * P.inv_m * P.inv_m + P.w_T);
-  Curv<S> c;
+  Curv<S> c = take_curv<S>(arena, lane);
   Vec<S> g, dg;
   float cur;
   {
@@ -450,17 +549,15 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
       const int k = lane + 32 * s;
       const bool valid = k < N;
       const float wp = step_weight(P, k);
-#pragma unroll
-      for (int a = 0; a < 6; ++a) c.h[s][a] = 0.f;
+      // the step's curvature blocks, summed here and stored once
+      float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, hv[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         gpos[s][a] = valid ? 2.f * wp * (pos[s][a] - goal[s][a]) : 0.f;
         gvel[s][a] = valid ? 2.f * P.w_v * vel[s][a] : 0.f;
-        c.hv[s][a] = 0.f;
         dg[s][a] = 0.f;
       }
-      if (!valid) continue;
-      if (P.use_obstacles) {
+      if (valid && P.use_obstacles) {
 #pragma unroll 4
         for (int o = 0; o < sp.n; ++o) {
           const float* ob = sp.s + 4 * o;
@@ -477,35 +574,39 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
             const float hd = viol / d;
             inv_d2 = act * (1.f + hd) / (d * d);
             const float diag_c = act * hd;
-            c.h[s][0] -= diag_c;
-            c.h[s][1] -= diag_c;
-            c.h[s][2] -= diag_c;
+            h[0] -= diag_c;
+            h[1] -= diag_c;
+            h[2] -= diag_c;
           } else {
             inv_d2 = act / (d * d);
           }
-          c.h[s][0] += inv_d2 * dx * dx;
-          c.h[s][1] += inv_d2 * dy * dy;
-          c.h[s][2] += inv_d2 * dz * dz;
-          c.h[s][3] += inv_d2 * dx * dy;
-          c.h[s][4] += inv_d2 * dx * dz;
-          c.h[s][5] += inv_d2 * dy * dz;
+          h[0] += inv_d2 * dx * dx;
+          h[1] += inv_d2 * dy * dy;
+          h[2] += inv_d2 * dz * dz;
+          h[3] += inv_d2 * dx * dy;
+          h[4] += inv_d2 * dx * dz;
+          h[5] += inv_d2 * dy * dz;
         }
       }
-      if (P.use_ground) {
+      if (valid && P.use_ground) {
         const float gv = fmaxf(P.z_min - pos[s][2], 0.f);
         gpos[s][2] -= 2.f * P.w_g * gv;
-        c.h[s][2] += (pos[s][2] < P.z_min) ? 2.f * P.w_g : 0.f;
+        h[2] += (pos[s][2] < P.z_min) ? 2.f * P.w_g : 0.f;
       }
-      if (P.use_vel_hinge) {
+      if (valid && P.use_vel_hinge) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           const float v = vel[s][a];
           const float vv = fmaxf(fabsf(v) - vmax, 0.f);
           const float sgn = (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
           gvel[s][a] += 2.f * P.w_vb * sgn * vv;
-          c.hv[s][a] = (fabsf(v) > vmax) ? 2.f * P.w_vb : 0.f;
+          hv[a] = (fabsf(v) > vmax) ? 2.f * P.w_vb : 0.f;
         }
       }
+#pragma unroll
+      for (int a = 0; a < 6; ++a) c.h[s][a] = h[a];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c.hv[s][a] = hv[a];
     }
     // the line search's reference: the current iterate's cost
     cur = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
@@ -525,7 +626,7 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
     }
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float acc = u[s][a] * P.inv_m + (a == 2 ? P.g_z : 0.f);
+      const float acc = accel<S>(P, u[s][a], a);
       const float du = u[s][a] - (a == 2 ? P.hover : 0.f);
       g[s][a] += 2.f * P.w_a * P.inv_m * acc + 2.f * P.w_T * du;
     }
@@ -677,7 +778,7 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
   Vec<S> bu;
   copy<S>(u, bu);
   for (int ia = 0; ia < P.n_alpha; ++ia) {
-    const float alpha = P.alphas[ia];
+    const float alpha = alphas[ia];
     Vec<S> cand, pc, vc;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
@@ -700,7 +801,7 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
 }
 
 template <int S>
-__global__ void __launch_bounds__(kWarps * 32, S == 1 ? 4 : 2)
+__global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
     mpc_solve_kernel(const MpcParams P, const float* __restrict__ consts,
                      const float* __restrict__ u0, const float* __restrict__ p0,
                      const float* __restrict__ v0, const float* __restrict__ goal_in,
@@ -709,10 +810,12 @@ __global__ void __launch_bounds__(kWarps * 32, S == 1 ? 4 : 2)
                      float* __restrict__ pos_out, float* __restrict__ vel_out,
                      float* __restrict__ imp_out, float* __restrict__ cost_out) {
   constexpr int LD = 32 * S;
-  extern __shared__ float smem[];  // [kWarps][K][4]: each warp's live spheres
+  // [kWarps<S>][K][4]: each warp's live spheres; then, at S >= 3, each warp's
+  // arena of kArenaFloats<S>: the goal, c0 and a round's Curv
+  extern __shared__ float smem[];
   const int N = P.N, K = P.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * kWarps<S> + warp;
   if (b >= P.B) return;  // each warp touches only its own shared memory
   // Keep the live spheres, in order, at the front: a masked sphere adds
   // exactly 0 to every sum, so the loops skip it without a branch.
@@ -732,11 +835,15 @@ __global__ void __launch_bounds__(kWarps * 32, S == 1 ? 4 : 2)
   __syncwarp();
   const Spheres sp{live, P.use_obstacles ? n_live : 0};
 
-  // constants: t (k dt) and diag(H), each LD long, zero past N
+  // constants: t (k dt) and diag(H), each LD long, zero past N; then the
+  // n_alpha alphas
+  float* arena = smem + kWarps<S> * 4 * K + warp * kArenaFloats<S>;
+  Steps<S, 3> goal = take<S, 3>(arena, lane), c0 = take<S, 3>(arena, lane);
+  const float* alphas = consts + 2 * LD;
   const float vmax = vcap ? vcap[b] : P.v_max;
   const float vel0[3] = {v0[b * 3], v0[b * 3 + 1], v0[b * 3 + 2]};
   float dq[S];
-  Vec<S> u, goal, c0;
+  Vec<S> u;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int k = lane + 32 * s;
@@ -753,11 +860,13 @@ __global__ void __launch_bounds__(kWarps * 32, S == 1 ? 4 : 2)
 
   float min_imp = INFINITY;
   for (int i = 0; i < P.n_gn; ++i)
-    newton_round<S>(P, sp, lane, vmax, false, c0, vel0, goal, dq, u, min_imp, P.cg_iters);
+    newton_round<S>(P, sp, lane, vmax, false, c0, vel0, goal, dq, alphas, arena, u, min_imp,
+                    P.cg_iters);
   if (P.n_full > 0) {
     min_imp = INFINITY;  // the stall tracker restarts with stage 2
     for (int i = 0; i < P.n_full; ++i)
-      newton_round<S>(P, sp, lane, vmax, true, c0, vel0, goal, dq, u, min_imp, P.cg_iters);
+      newton_round<S>(P, sp, lane, vmax, true, c0, vel0, goal, dq, alphas, arena, u, min_imp,
+                      P.cg_iters);
   }
 
   Vec<S> pos, vel;
@@ -786,13 +895,14 @@ cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, con
                    const float* v0, const float* goal, const float* obs, const float* mask,
                    const float* vcap, float* u_out, float* pos_out, float* vel_out,
                    float* imp_out, float* cost_out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(kWarps * 4 * P.K);
+  const size_t smem =
+      sizeof(float) * ((size_t)kWarps<S> * 4 * P.K + kWarps<S> * kArenaFloats<S>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         mpc_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((P.B + kWarps - 1) / kWarps), block(kWarps * 32);
+  const dim3 grid((P.B + kWarps<S> - 1) / kWarps<S>), block(kWarps<S> * 32);
   mpc_solve_kernel<S><<<grid, block, smem, stream>>>(P, consts, u0, p0, v0, goal, obs, mask,
                                                      vcap, u_out, pos_out, vel_out, imp_out,
                                                      cost_out);
@@ -816,15 +926,12 @@ extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, co
                                 float* cost_out, void* stream) {
   const MpcParams P = *params;
   if (P.B <= 0) return 0;
-  if (P.N < 1 || P.N > 64 || P.K < 0 || P.n_alpha < 0 || P.n_alpha > kMaxAlphas)
+  if (P.N < 1 || P.N > 32 * kMaxSteps || P.K < 0 || P.n_alpha < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (P.N <= 32)
-    e = launch<1>(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out, vel_out,
-                  imp_out, cost_out, st);
-  else
-    e = launch<2>(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out, vel_out,
-                  imp_out, cost_out, st);
-  return (int)e;
+  // by the horizon steps a lane, ceil(N / 32)
+  constexpr decltype(&launch<1>) by_steps[kMaxSteps] = {launch<1>, launch<2>, launch<3>,
+                                                        launch<4>};
+  return (int)by_steps[(P.N + 31) / 32 - 1](P, consts, u0, p0, v0, goal, obs, mask, vcap,
+                                             u_out, pos_out, vel_out, imp_out, cost_out, st);
 }

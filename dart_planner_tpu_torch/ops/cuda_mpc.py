@@ -12,9 +12,9 @@ signature. ``LAUNCHES`` counts the kernel's launches.
 The kernel applies the rollout maps S_p/m, S_v/m, their transposes and the
 quadratic Hessian as warp scans (``csrc/mpc_solve.cu``;
 :func:`~dart_planner_tpu_torch.ops.dynamics.apply_structured` is the same
-identity in plain PyTorch). Its only constants are two step vectors, built
-once per configuration and device on the host in float64, cast to float32
-and uploaded.
+identity in plain PyTorch). Its only constants are two step vectors and the
+line search's alphas, built once per configuration and device on the host
+(the vectors in float64), cast to float32 and uploaded.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ REPLACES = "dart_planner_tpu/ops/pallas_mpc.py:806"
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
-MAX_HORIZON = 64  # the kernel holds at most two horizon steps per lane
-_MAX_ALPHAS = 8
+# The kernel holds at most four horizon steps a lane (csrc/mpc_solve.cu),
+# which covers every horizon both packages' front doors accept
+# (prediction_horizon <= 100 in config/frozen_config.py).
+MAX_HORIZON = 128
 
 _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -49,10 +51,10 @@ class _Params(ctypes.Structure):
             "use_obstacles", "use_ground", "use_vel_hinge", "use_tilt",
             "use_tnorm",
         )
-    ] + [("alphas", _c_float * _MAX_ALPHAS)] + [
+    ] + [
         (name, _c_float)
         for name in (
-            "inv_m", "hover", "g_z", "w_p", "w_pN", "w_v", "w_a", "w_T",
+            "inv_m", "inv_m_lo", "hover", "g_z", "w_p", "w_pN", "w_v", "w_a", "w_T",
             "w_obs", "w_g", "z_min", "w_vb", "v_max", "w_tilt", "tan_max",
             "w_tn", "u_max",
         )
@@ -97,7 +99,7 @@ def lane_stride(N: int) -> int:
 def constants_host(config) -> torch.Tensor:
     """The kernel's constant block, float32 on the CPU: the step vectors t
     (``k dt``) and diag(H), each ``lane_stride(N)`` long and zero at steps
-    k >= N."""
+    k >= N, then ``config.line_search_alphas`` (any count of them)."""
     N = config.prediction_horizon
     LD = lane_stride(N)
     _, _, t = dynamics.rollout_matrices(N, float(config.dt))
@@ -107,7 +109,8 @@ def constants_host(config) -> torch.Tensor:
     out = torch.zeros(2, LD, dtype=torch.float32)
     for row, v in enumerate((t, np.diagonal(H))):
         out[row, :N] = torch.tensor(np.array(v), dtype=torch.float32)
-    return out.reshape(-1)
+    alphas = torch.tensor(config.line_search_alphas, dtype=torch.float32).reshape(-1)
+    return torch.cat([out.reshape(-1), alphas])
 
 
 @functools.lru_cache(maxsize=32)
@@ -117,18 +120,16 @@ def _constants(config, device: str) -> torch.Tensor:
 
 def _params(config, B: int, K: int, use_obstacles: bool) -> _Params:
     w = config.weights
-    alphas = tuple(config.line_search_alphas)
-    if len(alphas) > _MAX_ALPHAS:
-        raise ValueError(f"at most {_MAX_ALPHAS} line-search alphas, got {len(alphas)}")
     n_gn, n_full = stage_counts(config)
     lb, ub = config.thrust_bound_values()
+    inv_m = 1.0 / config.mass
     P = _Params(
         B=B, N=config.prediction_horizon, K=K, n_gn=n_gn, n_full=n_full,
-        cg_iters=config.cg_iterations, n_alpha=len(alphas),
+        cg_iters=config.cg_iterations, n_alpha=len(config.line_search_alphas),
         use_obstacles=int(use_obstacles), use_ground=int(w.ground > 0.0),
         use_vel_hinge=int(w.velocity_bound > 0.0), use_tilt=int(w.tilt > 0.0),
         use_tnorm=int(w.thrust_norm > 0.0),
-        inv_m=1.0 / config.mass, hover=config.hover_thrust,
+        inv_m=inv_m, inv_m_lo=inv_m - float(np.float32(inv_m)), hover=config.hover_thrust,
         g_z=-config.gravity, w_p=w.position,
         w_pN=w.position * (1.0 + w.terminal), w_v=w.velocity,
         w_a=w.acceleration, w_T=w.thrust, w_obs=w.obstacle, w_g=w.ground,
@@ -136,7 +137,6 @@ def _params(config, B: int, K: int, use_obstacles: bool) -> _Params:
         w_tilt=w.tilt, tan_max=w.tan_max_tilt, w_tn=w.thrust_norm,
         u_max=w.max_thrust_norm, dt=config.dt,
     )
-    P.alphas[: len(alphas)] = alphas
     P.lb[:] = lb
     P.ub[:] = ub
     return P
@@ -160,6 +160,17 @@ def solve_thrusts_plain(config, prob: costs.Problem, u_init: torch.Tensor,
         u, prob, config.weights, config.dt, config.mass, gvec
     )
     return u, min_improvement, pos, vel, cost
+
+
+def exact_cost(config, prob: costs.Problem, u: torch.Tensor) -> torch.Tensor:
+    """The cost of thrusts ``u`` evaluated in float64 from the same float32
+    inputs the kernel takes (the problem, the float32 gravity): the
+    reference for the kernel's float32 cost pass, on ``u``'s device."""
+    p64 = costs.Problem(*[x.double() if x is not None and x.dtype.is_floating_point else x
+                          for x in prob])
+    g = torch.tensor([0.0, 0.0, -config.gravity], dtype=torch.float32, device=u.device)
+    return costs.condensed_cost(u.double(), p64, config.weights, config.dt, config.mass,
+                                g.double())
 
 
 def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
@@ -187,6 +198,26 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
         raise ValueError(f"the CUDA solve takes N <= {MAX_HORIZON}, got {N}")
     if tuple(u_init.shape[-2:]) != (N, 3):
         raise ValueError(f"u_init must end in ({N}, 3), got {tuple(u_init.shape)}")
+    # the tensors' card is made current for the launch: the runtime
+    # launches on the current device, and the kernel's shared-memory
+    # attribute is set per device
+    with torch.cuda.device(device):
+        out = run_library(_library, config, prob, u_init, use_obstacles,
+                          torch.cuda.current_stream(device).cuda_stream)
+    if math.prod(u_init.shape[:-2]) > 0:
+        LAUNCHES += 1
+    return out
+
+
+def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
+                use_obstacles: bool, stream) -> tuple:
+    """One launch through ``library()``, a library with the C interface of
+    ``csrc/mpc_solve.cu``, on ``stream``: the inputs flattened to contiguous
+    float32 per-scenario copies, the outputs allocated beside them and
+    shaped as :func:`solve_thrusts_fused` returns them. Raises if the launch
+    fails; an empty batch launches nothing."""
+    device = u_init.device
+    N = config.prediction_horizon
     batch_shape = tuple(u_init.shape[:-2])
     B = math.prod(batch_shape)
     K = prob.obstacles.shape[-2]
@@ -212,27 +243,21 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     imp_out = torch.empty((B,), dtype=torch.float32, device=device)
     cost_out = torch.empty_like(imp_out)
     if B > 0:
-        lib = _library()
+        lib = library()
         params = _params(config, B, K, use_obstacles)
         consts = _constants(config, str(device))
-        # the tensors' card is made current for the launch: the runtime
-        # launches on the current device, and the kernel's shared-memory
-        # attribute is set per device
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.mpc_solve_launch(
-                ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
-                p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
-                mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
-                u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
-                imp_out.data_ptr(), cost_out.data_ptr(), stream,
-            )
+        err = lib.mpc_solve_launch(
+            ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
+            p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
+            mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
+            u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
+            imp_out.data_ptr(), cost_out.data_ptr(), stream,
+        )
         if err != 0:
             raise RuntimeError(
                 f"mpc_solve launch failed: CUDA error {err} "
                 f"({lib.mpc_error_string(err).decode()})"
             )
-        LAUNCHES += 1
 
     def rows(x):
         return x.reshape(batch_shape + (N, 3))

@@ -12,7 +12,8 @@ package.
   from the web demo's ``obstacle_avoidance`` start as the JAX package's
   does: positions within 1e-3 m without obstacles; with the scenario's
   spheres, where a solve may branch at line-search near-ties (ROADMAP C.9),
-  both thrust plans costed on the port's problem within 1e-4 relative.
+  both thrust plans costed on the port's problem within 1e-4 relative. At
+  ``DART_PREDICTION_HORIZON=100`` by cost alone (the test's docstring).
 - ``RealTimeConfig.quartic_tasks`` gives equal task tables, and
   ``HeartbeatConfig.from_central_config`` equal values.
 
@@ -254,10 +255,22 @@ def _finalized_cost(planner, state, u) -> float:
     return float(T._finalize(planner.config, prob, u).cost)
 
 
+@pytest.mark.parametrize("horizon", [None, "100"], ids=["default", "N100"])
 @pytest.mark.parametrize("with_obstacles", [False, True])
-def test_config_planner_first_plan_matches_jax(with_obstacles):
+def test_config_planner_first_plan_matches_jax(monkeypatch, with_obstacles, horizon):
     """The DI container's planner (the config's solver) plans once from the
-    demo's ``obstacle_avoidance`` start in each package."""
+    demo's ``obstacle_avoidance`` start in each package: at the default
+    horizon, and at ``DART_PREDICTION_HORIZON=100``, the longest the frozen
+    config accepts (four steps a lane of kernel B1 on the card).
+
+    At N=100 the default budget branches in float32 (ROADMAP C.21), so the
+    plans are held by their cost: without obstacles both plans' finalized
+    costs agree to 1e-4 relative (measured 6.2e-7, the positions 0.013 m
+    apart); with them the plans settle in different basins (2.56 m apart)
+    and the port's costs no more than the JAX plan's plus 1e-4 relative
+    (measured 1.26e-3 below it)."""
+    if horizon is not None:
+        monkeypatch.setenv("DART_PREDICTION_HORIZON", horizon)
     sc = DEMO_SCENARIOS["obstacle_avoidance"]
     tp = create_default_container(device="cpu").resolve(T.SE3MPCPlanner)
     jp = j_container().resolve(JPlanner)
@@ -273,15 +286,20 @@ def test_config_planner_first_plan_matches_jax(with_obstacles):
     jt = jp.plan_trajectory(js, np.float32(sc["goal_pos"]))
     t_pos = tt.positions.numpy()
     j_pos = np.asarray(jt.positions, np.float32)
-    assert t_pos.shape == j_pos.shape == (20, 3)
+    N = get_frozen_config().planning.prediction_horizon
+    assert N == (20 if horizon is None else int(horizon))
+    assert t_pos.shape == j_pos.shape == (N, 3)
     assert np.isfinite(t_pos).all()
-    if not with_obstacles:
+    if not with_obstacles and horizon is None:
         np.testing.assert_allclose(t_pos, j_pos, atol=1e-3)
         return
     u_j = torch.tensor(np.asarray(jp.last_solution, np.float32))
     c_t = _finalized_cost(tp, ts, tp.last_solution)
     c_j = _finalized_cost(tp, ts, u_j)
-    assert abs(c_t - c_j) <= 1e-4 * abs(c_j), (c_t, c_j)
+    if with_obstacles and horizon is not None:
+        assert c_t <= c_j + 1e-4 * abs(c_j), (c_t, c_j)
+    else:
+        assert abs(c_t - c_j) <= 1e-4 * abs(c_j), (c_t, c_j)
 
 
 # ---- the scheduler tasks and the heartbeat ----
