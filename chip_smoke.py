@@ -69,7 +69,10 @@ loop run after CUDA started here, fed a state read from the card (17e); and
 kernel B1 at three and four horizon steps a lane (phase 18, run after
 phase 13, before the mission phases' traces and 17e's fork): one Newton
 round at N = 65, 80, 100 and 128 against the plain version, scenario by
-scenario (18a), the two-phase solve at N = 80 and 100 (18b), the DI planner
+scenario (18a), the two-phase solve at N = 80 and 100 against the plain
+path within twice the plain path's own spread across devices, and two
+and three rounds against the plain loop, scenario by scenario beside the
+plain loop's own spread (18b), the DI planner
 under ``DART_PREDICTION_HORIZON`` = 80 and 100 (18c), and B1's times at N =
 20, 40, 80 and 100, B=4096 and B=1, with its ptxas registers and spills for
 each steps-a-lane instantiation (18d).
@@ -694,8 +697,9 @@ class _EventTimedLibrary:
 def b1_alone_ms(config, prob, u0, reps: int = 7) -> float:
     """Median device time of kernel B1 alone on ``prob`` by CUDA events
     around each launch (after a warm-up launch), through the wrapper's own
-    flattening (``cuda_mpc.run_library``). Late in this script's run
-    torch.profiler has held 4 of 5 launches' records, and then none, so
+    flattening (``cuda_mpc.run_library``, whose launches count in
+    ``cuda_mpc.LAUNCHES`` as every other path's do). Late in this script's
+    run torch.profiler has held 4 of 5 launches' records, and then none, so
     phase 18d does not rely on it."""
     import torch
 
@@ -3296,6 +3300,13 @@ TIMED_HORIZONS = (20, 40, 80, 100)
 # break, the active set or the line search branch 1-3 scenarios of 4096 in
 # a round there (as phase 3b's own N=20 config does at another seed)
 LONG_ROUND_BRANCHES = 1e-3
+# how far such a scenario may part: its largest thrust, position or velocity
+# difference within 5x phase 3b's 2e-3, as 3b's own outliers are, and the
+# exact costs of the two iterates within 10x 3b's 1e-4 (a branch that moves
+# the thrusts by 7e-3 N moves the exact cost by up to 5.6e-4 relative,
+# N=65 at full curvature). A fault in whole blocks parts them by newtons.
+LONG_ROUND_OUTLIER_DX = 5 * 2e-3
+LONG_ROUND_OUTLIER_COST = 10 * 1e-4
 
 
 def share_within(x, limit: float, share: float, factor: float = 5.0) -> bool:
@@ -3333,9 +3344,10 @@ def b1_round_scenarios(cfg_r, prob, u0) -> dict:
 
 
 def check_round_scenarios(tag: str, e: dict) -> str:
-    """Phase 3b's limits in all but LONG_ROUND_BRANCHES of the scenarios;
-    the kernel's cost within 1e-5 of the exact cost of its own thrusts in
-    all but 1e-3 of them and within 5e-5 in every one. Returns the line."""
+    """Phase 3b's limits in all but LONG_ROUND_BRANCHES of the scenarios,
+    and every scenario within LONG_ROUND_OUTLIER_DX and _COST; the kernel's
+    cost within 1e-5 of the exact cost of its own thrusts in all but 1e-3
+    of them and within 5e-5 in every one. Returns the line."""
     n_apart, c_own = len(e["apart"]), e["c_own"]
     line = (f"{n_apart} of {e['B']} scenarios apart (beyond 2e-3 or exact costs 1e-4 rel; "
             f"max |dx| {e['dx']:.3g}, cost rel {e['c_pl']:.3g}"
@@ -3347,8 +3359,83 @@ def check_round_scenarios(tag: str, e: dict) -> str:
     check(e["finite"], f"{tag}: non-finite kernel output")
     check(n_apart <= LONG_ROUND_BRANCHES * e["B"],
           f"{tag}: {n_apart} of {e['B']} scenarios beyond phase 3b's limits: {line}")
+    check(e["dx"] <= LONG_ROUND_OUTLIER_DX and e["c_pl"] <= LONG_ROUND_OUTLIER_COST,
+          f"{tag}: a scenario beyond {LONG_ROUND_OUTLIER_DX:g} or exact costs "
+          f"{LONG_ROUND_OUTLIER_COST:g} rel apart: {line}")
     check(share_within(c_own, 1e-5, 1e-3), f"{tag}: {line}")
     return line
+
+
+# how much smaller the share of scenarios in which B1's iterate stays
+# within phase 3b's limits of the plain loop's may be than the share in
+# which the plain loop on the CPU stays within them of itself on the card,
+# after a few rounds: the two shares differ by at most 0.0052 at N = 20-100
+# (my chip run, PR 10, call 13), while a fault in any round parts most
+# scenarios
+ROUNDS_CLOSE_SHORTFALL = 0.02
+# the budgets past one round that phase 18b runs: CG-4 keeps 80-99% of the
+# scenarios within phase 3b's limits at N <= 100; CG-8 parts ~90% of them
+# in float32 at any horizon (the plain loop from itself as well)
+ROUND_BUDGETS = ((2, 4), (3, 8))
+
+
+def b1_rounds(config, prob, rounds: int, cg: int) -> dict:
+    """``rounds`` Newton rounds at CG-``cg`` of kernel B1 against
+    ``solve_thrusts_plain`` from the cold start, a budget past one round so
+    that a fault from round 2 on shows. Held to the aggregate contract of
+    the JAX package's large-horizon test (as
+    tests/test_torch_cuda_mpc.py::test_cuda_kernel_obstacles_aggregate):
+    finite, inside the thrust bounds, every scenario's exact cost at or
+    below its cold start's, the exact mean costs within 5% of each other;
+    and scenario by scenario against the plain loop's own spread: the share
+    of scenarios within phase 3b's limits of the plain loop's iterate no
+    more than ROUNDS_CLOSE_SHORTFALL below the share in which the plain
+    loop on the CPU stays within them of itself on the card."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    N = config.prediction_horizon
+    tag = f"18b N={N} {rounds} rounds CG-{cg}"
+    cfg = config._replace(max_iterations=rounds, cg_iterations=cg, tail_iterations=0)
+    u0 = se3_mpc.initialize_thrusts(cfg, prob)
+    k = cuda_mpc.solve_thrusts_fused(cfg, prob, u0)
+    p = cuda_mpc.solve_thrusts_plain(cfg, prob, u0)
+    cpu = costs.Problem(*[None if x is None else x.cpu() for x in prob])
+    c = [x.to(u0.device) for x in cuda_mpc.solve_thrusts_plain(cfg, cpu, u0.cpu())]
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(x).all()) for x in k), f"{tag}: non-finite kernel output")
+    lb, ub = cfg.thrust_bounds(device=u0.device)
+    check(bool(((k[0] >= lb - 1e-5) & (k[0] <= ub + 1e-5)).all()),
+          f"{tag}: thrusts outside thrust_bounds")
+    e0, ek, ep, ec = (cuda_mpc.exact_cost(cfg, prob, u) for u in (u0, k[0], p[0], c[0]))
+    rise = float(((ek - e0) / e0).max())
+
+    def close(a, ea):  # the share of scenarios within phase 3b's limits of the plain loop's
+        dx = torch.stack([(a[i] - p[i]).abs().amax((-1, -2)) for i in (0, 2, 3)]).amax(0)
+        return float(((dx <= 2e-3) & ((ea - ep).abs() / ep <= 1e-4)).double().mean())
+
+    mk, mp, mc = float(ek.mean()), float(ep.mean()), float(ec.mean())
+    out = {"mean_cost_rel": abs(mk - mp) / mp, "mean_cost_rel_plain_cpu": abs(mc - mp) / mp,
+           "largest_rise": rise, "close_share": close(k, ek),
+           "close_share_plain_cpu": close(c, ec),
+           "converged": float((k[1] <= cfg.ftol).float().mean()),
+           "converged_plain": float((p[1] <= cfg.ftol).float().mean())}
+    line = (f"scenarios within phase 3b's limits of the plain loop's: kernel "
+            f"{out['close_share']:.4f}, the plain loop on the CPU "
+            f"{out['close_share_plain_cpu']:.4f} (shortfall allowed {ROUNDS_CLOSE_SHORTFALL}); "
+            f"exact mean cost {mk:.6g} (plain {mp:.6g}, rel {out['mean_cost_rel']:.3g}; the "
+            f"plain loop on the CPU {mc:.6g}, rel {out['mean_cost_rel_plain_cpu']:.3g}; 5%), "
+            f"largest rise over the cold start {rise:.3g} (0; 1e-6 for float32 ties); "
+            f"converged {out['converged']:.4f} (plain {out['converged_plain']:.4f})")
+    check(rise <= 1e-6, f"{tag}: a scenario's exact cost rose over its cold start: {line}")
+    check(mk <= 1.05 * mp and mp <= 1.05 * mk, f"{tag}: mean costs apart: {line}")
+    check(out["close_share"] >= out["close_share_plain_cpu"] - ROUNDS_CLOSE_SHORTFALL,
+          f"{tag}: B1 parts from the plain loop more often than the plain loop from itself: "
+          f"{line}")
+    print(f"[{tag}] B={u0.shape[0]}, kernel vs plain: {line}", flush=True)
+    return out
 
 
 def ptxas_by_steps(log: str) -> dict:
@@ -3389,17 +3476,20 @@ def long_horizon_phase(dev, card: str) -> dict:
     count set to 0 just before and read just after: 2 launches, finite
     thrusts inside their bounds, the kernel's costs against the exact costs
     of its thrusts; its converged share and mean cost against
-    ``solve(method="torch")`` are printed beside phase 11's limits (0.002,
-    1e-3), which float32 does not hold at these horizons (ROADMAP C.21),
-    and beside the plain path's own on the CPU.
+    ``solve(method="torch")`` within twice the plain path's own spread
+    between the CPU and the card (at least phase 11's 0.002 and 1e-3, which
+    float32 does not hold at these horizons, ROADMAP C.21); and each of
+    ROUND_BUDGETS against the plain loop, to the aggregate contract and
+    scenario by scenario against the plain loop's own spread
+    (:func:`b1_rounds`).
     18c: the DI container's planner under ``DART_PREDICTION_HORIZON`` at the
     same horizons, on the card with N from the frozen config, 2 launches a
     plan, one CG-2 round of B1 on its recorded first problem against the
     plain version; its plan's gap to the plain path printed beside 16a's
     1e-3 m. 18d: the phase-1 solve at each of TIMED_HORIZONS, B=4096 and
-    B=1: with the wrapper (CUDA events), the kernel alone (torch.profiler),
-    the plain version, the bound and the share of it reached; and B1's
-    ptxas registers and spills for each S. N = MAX_HORIZON + 1 must raise
+    B=1: with the wrapper (CUDA events), the kernel alone (CUDA events
+    around the launch), the plain version, the bound and the share of it
+    reached; and B1's ptxas registers and spills for each S. N = MAX_HORIZON + 1 must raise
     before any launch."""
     import torch
 
@@ -3434,7 +3524,7 @@ def long_horizon_phase(dev, card: str) -> dict:
                 err_rounds.append(e["dx"])
 
     launches = 0
-    solves = {}
+    solves, rounds = {}, {}
     for N in LONG_SOLVE_HORIZONS:
         cfg = base._replace(prediction_horizon=N)
         prob = bench_problem(se3_mpc, cfg, B_BENCH, N, dev)
@@ -3466,18 +3556,30 @@ def long_horizon_phase(dev, card: str) -> dict:
         mc, mp, m_c = float(res.cost.mean()), float(ref.cost.mean()), float(ref_cpu.cost.mean())
         rel, rel_c = abs(mc - mp) / abs(mp), abs(m_c - mp) / abs(mp)
         held = abs(conv - conv_p) <= 0.002 and rel <= 1e-3
+        # the plain path parts from itself across devices as far as phase
+        # 11's limits are exceeded here (C.21): the kernel may part from it
+        # by at most twice that spread, and never by more than phase 11's
+        # limits where the spread is smaller
+        lim_conv = max(0.002, 2 * abs(conv_c - conv_p))
+        lim_cost = max(1e-3, 2 * rel_c)
         solves[N] = {"converged": conv, "converged_plain": conv_p, "converged_plain_cpu": conv_c,
                      "mean_cost": mc, "mean_cost_plain": mp, "mean_cost_plain_cpu": m_c,
-                     "within_phase11_limits": held}
+                     "within_phase11_limits": held,
+                     "limits": {"converged": lim_conv, "mean_cost_rel": lim_cost}}
+        line = (f"converged {conv:.4f} (plain path {conv_p:.4f}, apart {abs(conv - conv_p):.4f}; "
+                f"the plain path on the CPU {conv_c:.4f}, apart from the card's "
+                f"{abs(conv_c - conv_p):.4f}; limit {lim_conv:.4f}), mean cost {mc:.6g} (plain "
+                f"{mp:.6g}, rel {rel:.3g}; on the CPU {m_c:.6g}, rel {rel_c:.3g}; limit "
+                f"{lim_cost:.3g}); phase 11's 0.002 and 1e-3: "
+                + ("held" if held else "not held (ROADMAP C.21)"))
+        check(abs(conv - conv_p) <= lim_conv and rel <= lim_cost,
+              f"18b N={N}: the kernel's solve parts from the plain path by more than twice "
+              f"the plain path's own spread across devices: {line}")
         print(f"[18b N={N}] solve(method='auto') B={B_BENCH}: {n} launches, thrusts inside "
               f"their bounds, cost vs the exact cost of its thrusts p99.9 "
-              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}; converged "
-              f"{conv:.4f} (plain path {conv_p:.4f}, apart {abs(conv - conv_p):.4f}; phase 11's "
-              f"0.002), mean cost {mc:.6g} (plain {mp:.6g}, rel {rel:.3g}; phase 11's 1e-3): "
-              + ("held" if held else "not held, float32 chaos at the full budget (ROADMAP "
-                 "C.21), not gated")
-              + f"; the plain path on the CPU: converged {conv_c:.4f} (apart from the card's "
-              f"{abs(conv_c - conv_p):.4f}), mean cost {m_c:.6g} (rel {rel_c:.3g})", flush=True)
+              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}; {line}",
+              flush=True)
+        rounds[N] = {f"{r}x{cg}": b1_rounds(cfg, prob, r, cg) for r, cg in ROUND_BUDGETS}
 
     sc = DEMO_SCENARIOS[DI_SCENARIO]
     state = DroneState.create(position=sc["start_pos"], device=dev)
@@ -3555,6 +3657,7 @@ def long_horizon_phase(dev, card: str) -> dict:
                   f"{bnd / d_k:.3g})", flush=True)
     times["ptxas"] = {f"S{s}": v for s, v in sorted(ptxas.items())}
     times["solves"] = {f"N{N}": v for N, v in solves.items()}
+    times["rounds"] = {f"N{N}": v for N, v in rounds.items()}
     print(f"[18 long horizons] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
           f"B1 ptxas by steps a lane: "
           + ("; ".join(f"S={s}: {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "

@@ -1,6 +1,7 @@
 // The few CUDA features csrc/mpc_solve.cu uses, emulated on the CPU for
-// ops/cpu_emulation.py: one warp at a time, each of its 32 lanes a thread;
-// shuffles and ballots pass through a buffer between two barrier waits, so
+// tests/test_torch_long_horizon.py, which compiles the kernel with g++:
+// one warp at a time, each of its 32 lanes a thread; shuffles and
+// ballots pass through a buffer between two barrier waits, so
 // every lane sees the values all lanes held at the call, as on the card.
 // Blocks and warps run one after another (the kernel shares nothing across
 // warps), so one buffer and one barrier serve every warp.

@@ -184,7 +184,6 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     copies before the launch. On CUDA tensors it launches the kernel on the
     current stream (no synchronization) or raises; on CPU tensors it runs
     :func:`solve_thrusts_plain`."""
-    global LAUNCHES
     if u_init.device.type != "cuda":
         return solve_thrusts_plain(config, prob, u_init, use_obstacles)
     device = u_init.device
@@ -202,11 +201,8 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     # launches on the current device, and the kernel's shared-memory
     # attribute is set per device
     with torch.cuda.device(device):
-        out = run_library(_library, config, prob, u_init, use_obstacles,
-                          torch.cuda.current_stream(device).cuda_stream)
-    if math.prod(u_init.shape[:-2]) > 0:
-        LAUNCHES += 1
-    return out
+        return run_library(_library, config, prob, u_init, use_obstacles,
+                           torch.cuda.current_stream(device).cuda_stream)
 
 
 def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
@@ -215,7 +211,10 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     ``csrc/mpc_solve.cu``, on ``stream``: the inputs flattened to contiguous
     float32 per-scenario copies, the outputs allocated beside them and
     shaped as :func:`solve_thrusts_fused` returns them. Raises if the launch
-    fails; an empty batch launches nothing."""
+    fails; an empty batch launches nothing. A launch on a CUDA stream adds
+    one to ``LAUNCHES``; ``stream=None`` (a library built for the CPU) does
+    not."""
+    global LAUNCHES
     device = u_init.device
     N = config.prediction_horizon
     batch_shape = tuple(u_init.shape[:-2])
@@ -258,6 +257,8 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
                 f"mpc_solve launch failed: CUDA error {err} "
                 f"({lib.mpc_error_string(err).decode()})"
             )
+        if stream is not None:
+            LAUNCHES += 1
 
     def rows(x):
         return x.reshape(batch_shape + (N, 3))

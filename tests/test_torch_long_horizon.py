@@ -13,8 +13,9 @@ the CPU, against the JAX package.
 - ``cuda_mpc.MAX_HORIZON`` covers every horizon either package's front
   door accepts (the ``le`` bound of ``prediction_horizon`` in both frozen
   configs).
-- The kernel's own source, compiled for the CPU by
-  ``ops/cpu_emulation.py`` (g++; each lane a thread), runs one Newton round
+- The kernel's own source, compiled for the CPU by g++ against
+  ``csrc/emulation/cuda_runtime.h`` (each lane a thread; shuffles and
+  ballots through a buffer and a barrier), runs one Newton round
   at CG-2 at one to four steps a lane against the plain loop: thrusts
   within 2e-3 (float32 sums in another order), positions and velocities
   within 1e-4 of the exact (float64) rollout of its own thrusts, its cost
@@ -29,7 +30,10 @@ and the kernel itself at these horizons by the ``cuda`` tests of
 tests/test_torch_cuda_mpc.py and ``chip_smoke.py`` phase 18.
 """
 
+import ctypes
+import re
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -39,7 +43,7 @@ from dart_planner_tpu.config import frozen_config as J_fc
 from dart_planner_tpu.planning import se3_mpc as J
 from dart_planner_tpu_torch import interop
 from dart_planner_tpu_torch.config import frozen_config as T_fc
-from dart_planner_tpu_torch.ops import cuda_mpc, dynamics
+from dart_planner_tpu_torch.ops import _build, cuda_mpc, dynamics
 from dart_planner_tpu_torch.planning import se3_mpc as T
 
 
@@ -93,20 +97,54 @@ def test_kernel_horizon_covers_the_front_door(module):
     assert cuda_mpc.lane_stride(cuda_mpc.MAX_HORIZON) == 128  # four steps a lane
 
 
+# the definitions the emulation header declares, appended to the source
+_EMULATION_GLOBALS = """
+namespace { float smem[1 << 22]; }
+thread_local uint3 threadIdx, blockIdx;
+static std::barrier<> emu_barrier(32);
+std::barrier<>* emu_warp = &emu_barrier;
+float emu_buf[32];
+unsigned emu_bits[32];
+"""
+
+
 @pytest.fixture(scope="module")
-def emulation():
-    if shutil.which("g++") is None:
+def emulated_library(tmp_path_factory):
+    """``csrc/mpc_solve.cu`` compiled by g++ (C++20) for the CPU, bound
+    with the kernel's C interface: its one ``<<<...>>>`` launch becomes a
+    call of the header's launcher; ``-mfma -ffp-contract=fast`` contracts
+    into FMAs as nvcc does, square roots and divisions stay IEEE as
+    nvcc's defaults. A 16-scenario round at N=128 takes a few seconds."""
+    gxx = shutil.which("g++")
+    if gxx is None:
         pytest.skip("needs g++ to compile the kernel's CPU emulation")
-    from dart_planner_tpu_torch.ops import cpu_emulation
+    source = _build.SRC_DIR / "mpc_solve.cu"
+    text, n = re.subn(r"(\w+<S>)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", source.read_text())
+    assert n == 1, f"{source}: expected one kernel launch, found {n}"
+    out = tmp_path_factory.mktemp("emulation")
+    (out / "mpc_solve.cpp").write_text(text + _EMULATION_GLOBALS)
+    subprocess.run([gxx, "-std=c++20", "-O2", "-mfma", "-ffp-contract=fast", "-fPIC",
+                    "-shared", "-pthread", f"-I{_build.SRC_DIR / 'emulation'}",
+                    "-o", str(out / "libmpc_solve.so"), str(out / "mpc_solve.cpp")],
+                   check=True, capture_output=True, text=True)
+    lib = cuda_mpc.bind(ctypes.CDLL(str(out / "libmpc_solve.so")))
+    assert lib.mpc_params_size() == ctypes.sizeof(cuda_mpc._Params)
+    return lib
 
-    cpu_emulation.library()
-    return cpu_emulation
+
+def _bench_problem(config, batch, seed):
+    """The chip smoke's bench batch on the CPU (4 live spheres a scenario)."""
+    p0, v0, goal, obs = _arrays(np.random.default_rng(seed), batch, 4)
+    return T.make_problem(p0, v0, goal, obstacles=obs, config=config, device="cpu")
 
 
-def _emulated_round(emulation, config, batch=16):
-    prob = emulation.bench_problem(config, batch, config.prediction_horizon)
+def _emulated_round(library, config, batch=16):
+    """One launch of the emulated kernel (through the wrapper's own
+    flattening, ``cuda_mpc.run_library``, with no stream) against the plain
+    loop on the bench batch."""
+    prob = _bench_problem(config, batch, config.prediction_horizon)
     u0 = T.initialize_thrusts(config, prob)
-    k = emulation.solve_thrusts_emulated(config, prob, u0)
+    k = cuda_mpc.run_library(lambda: library, config, prob, u0, True, None)
     p = cuda_mpc.solve_thrusts_plain(config, prob, u0)
     torch.testing.assert_close(k[0], p[0], rtol=0, atol=2e-3)
     g = torch.tensor([0.0, 0.0, -config.gravity], dtype=torch.float32).double()
@@ -121,17 +159,42 @@ def _emulated_round(emulation, config, batch=16):
 
 @pytest.mark.parametrize("N", [20, 65, 100, 128])
 @pytest.mark.parametrize("stage", ["gauss_newton", "full_curvature"])
-def test_emulated_kernel_one_round_matches_plain(emulation, N, stage):
+def test_emulated_kernel_one_round_matches_plain(emulated_library, N, stage):
     config = T.SE3MPCConfig(prediction_horizon=N, max_iterations=1, cg_iterations=2,
                             tail_iterations=0,
                             gn_warmup_iterations=1 if stage == "gauss_newton" else 0)
-    _emulated_round(emulation, config)
+    _emulated_round(emulated_library, config)
 
 
-def test_emulated_kernel_takes_twelve_alphas(emulation):
+def test_emulated_kernel_takes_twelve_alphas(emulated_library):
     alphas = (0.005, 0.01, 0.02, 0.03, 0.06, 0.1, 0.18, 0.25, 0.35, 0.5, 0.7, 1.0)
     config = T.SE3MPCConfig(prediction_horizon=100, max_iterations=1, cg_iterations=2,
                             tail_iterations=0, line_search_alphas=alphas)
-    k, _ = _emulated_round(emulation, config)
-    k8, _ = _emulated_round(emulation, config._replace(line_search_alphas=alphas[:8]))
+    k, _ = _emulated_round(emulated_library, config)
+    k8, _ = _emulated_round(emulated_library, config._replace(line_search_alphas=alphas[:8]))
     assert not torch.equal(k8[0], k[0])  # the last four alphas are tried
+
+
+def test_run_library_counts_a_launch_on_a_stream(emulated_library):
+    """``LAUNCHES`` rises where the kernel is launched, in ``run_library``,
+    so every caller of it counts: once a launch on a stream (0 is the
+    default CUDA stream), never for a library built for the CPU
+    (``stream=None``) or an empty batch."""
+    config = T.SE3MPCConfig(prediction_horizon=20, max_iterations=1, cg_iterations=2,
+                            tail_iterations=0)
+    prob = _bench_problem(config, 2, 20)
+    u0 = T.initialize_thrusts(config, prob)
+
+    def launch(batch, stream):
+        part = T.costs.Problem(*[None if x is None else x[:batch] for x in prob])
+        before = cuda_mpc.LAUNCHES
+        out = cuda_mpc.run_library(lambda: emulated_library, config, part, u0[:batch], True,
+                                   stream)
+        return out, cuda_mpc.LAUNCHES - before
+
+    on_cpu, n_cpu = launch(2, None)
+    on_stream, n_stream = launch(2, 0)
+    _, n_empty = launch(0, 0)
+    assert (n_cpu, n_stream, n_empty) == (0, 1, 0)
+    for a, b in zip(on_cpu, on_stream):
+        assert torch.equal(a, b)
