@@ -66,8 +66,7 @@ B1 plan to the simulated vehicle on the card, against the plain path, and
 its denials, emergency-stop latch and re-authentication (17c); the AirSim
 adapter on the card against the CPU's, bit for bit (17d); and the process
 loop run after CUDA started here, fed a state read from the card (17e); and
-kernel B1 at three and four horizon steps a lane (phase 18, run after
-phase 13, before the mission phases' traces and 17e's fork): one Newton
+kernel B1 past 64 horizon steps (phase 18, after 17e's fork): one Newton
 round at N = 65, 80, 100 and 128 against the plain version, scenario by
 scenario (18a), the two-phase solve at N = 80 and 100 against the plain
 path within twice the plain path's own spread across devices, and two
@@ -75,7 +74,15 @@ and three rounds against the plain loop, scenario by scenario beside the
 plain loop's own spread (18b), the DI planner
 under ``DART_PREDICTION_HORIZON`` = 80 and 100 (18c), and B1's times at N =
 20, 40, 80 and 100, B=4096 and B=1, with its ptxas registers and spills for
-each steps-a-lane instantiation (18d).
+each steps-a-lane instantiation (18d); a fork, then a cold start at a
+horizon not cached before and its solve under a watchdog (18e, ROADMAP
+C.23); B1 past 128 steps, one instantiation for five or more steps a lane
+(18f, C.24): one Newton round and ``solve()`` at N = 129, 160, 256 and 769
+(the smallest N whose arena spills to global scratch) at B=64, the
+two-phase solve at N=160, B=4096 within twice the plain path's own spread,
+its ptxas lines and times; and the convergence diagnostic
+(``scripts/diag_convergence_torch.py``) at N = 20, 80 and 100 with its
+rows, its ship row at N=20 against phase 4's converged share (phase 19).
 Phases 7 and 10 time the kernels against their plain versions with CUDA
 events, and the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -100,6 +107,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -1097,7 +1105,7 @@ def solver_phases(dev, card: str, first) -> dict:
               flush=True)
 
     return {"launches": launches, "max_abs_err": max([err_u] + err_rounds),
-            **times["phase1_4096"], "times": times}
+            **times["phase1_4096"], "times": times, "converged": conv}
 
 
 def _free_port() -> int:
@@ -3315,53 +3323,87 @@ def share_within(x, limit: float, share: float, factor: float = 5.0) -> bool:
     return float((x > limit).float().mean()) <= share and float(x.max()) <= factor * limit
 
 
-def b1_round_scenarios(cfg_r, prob, u0) -> dict:
+def _scenarios_apart(a, ea, p, ep):
+    """Per scenario: the largest |a - p| of the thrusts, positions and
+    velocities of two solver outputs, the relative difference of their
+    iterates' exact costs ``ea`` and ``ep``, and |a - p| of their smallest
+    relative improvements (output 1, which decides the converged flags)
+    over 1 + |p|: the improvement (cost(u0) - cost(u)) / (1 + |cost(u)|)
+    moves by that much when each cost moves by as much relative."""
+    import torch
+
+    dx = torch.stack([(a[i] - p[i]).abs().amax((-1, -2)) for i in (0, 2, 3)]).amax(0)
+    di = (a[1] - p[1]).abs() / (1.0 + p[1].abs())
+    return dx.reshape(-1), ((ea - ep).abs() / ep.abs()).reshape(-1), di.reshape(-1)
+
+
+def b1_round_scenarios(cfg_r, prob, u0, with_cpu: bool = False) -> dict:
     """One launch of kernel B1 against ``solve_thrusts_plain`` on the same
     inputs, scenario by scenario: the largest |kernel - plain| of each
     scenario's thrusts, positions and velocities, the relative difference
-    of the two iterates' exact (float64) costs, and the kernel's cost
-    against the exact cost of its own thrusts. A scenario is apart when it
-    is beyond phase 3b's limits (2e-3; 1e-4 relative)."""
+    of the two iterates' exact (float64) costs, |kernel - plain| of the
+    smallest relative improvement, and the kernel's cost against the exact
+    cost of its own thrusts. A scenario is apart when it is beyond phase
+    3b's limits (2e-3; 1e-4 relative, on the costs and the improvements,
+    :func:`_scenarios_apart`). With ``with_cpu``, also the plain loop on the
+    CPU against itself on the card, the same way: its own spread (``"cpu"``:
+    scenarios apart, the largest differences)."""
     import torch
 
-    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc
 
     kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
     pr = cuda_mpc.solve_thrusts_plain(cfg_r, prob, u0)
     torch.cuda.synchronize()
-    dx = torch.stack([(kr[i] - pr[i]).abs().amax((-1, -2)) for i in (0, 2, 3)]).amax(0)
     ek, ep = cuda_mpc.exact_cost(cfg_r, prob, kr[0]), cuda_mpc.exact_cost(cfg_r, prob, pr[0])
-    dx, ek, ep, ck, cp = (x.reshape(-1) for x in (dx, ek, ep, kr[4].double(),
-                                                  pr[4].double()))
-    c_pl = (ek - ep).abs() / ep.abs()
+    dx, c_pl, di = _scenarios_apart(kr, ek, pr, ep)
+    ek, ep, ck, cp = (x.reshape(-1) for x in (ek, ep, kr[4].double(), pr[4].double()))
     c_own = (ck - ek).abs() / ek.abs()
-    apart = ((dx > 2e-3) | (c_pl > 1e-4)).nonzero().flatten().tolist()
-    return {"finite": all(bool(torch.isfinite(x).all()) for x in kr), "B": dx.numel(),
-            "dx": float(dx.max()), "c_pl": float(c_pl.max()), "c_own": c_own,
-            "c_plain_own": float(((cp - ep).abs() / ep.abs()).max()),
-            "apart": [(i, float(dx[i]), float(c_pl[i]), float(ek[i]), float(ep[i]))
-                      for i in apart]}
+    apart = ((dx > 2e-3) | (c_pl > 1e-4) | (di > 1e-4)).nonzero().flatten().tolist()
+    out = {"finite": all(bool(torch.isfinite(x).all()) for x in kr), "B": dx.numel(),
+           "dx": float(dx.max()), "c_pl": float(c_pl.max()), "di": float(di.max()),
+           "c_own": c_own, "dx_all": dx, "c_all": c_pl, "di_all": di,
+           "c_plain_own": float(((cp - ep).abs() / ep.abs()).max()),
+           "apart": [(i, float(dx[i]), float(c_pl[i]), float(ek[i]), float(ep[i]))
+                     for i in apart]}
+    if with_cpu:
+        cpu = costs.Problem(*[None if x is None else x.cpu() for x in prob])
+        cr = [x.to(u0.device) for x in cuda_mpc.solve_thrusts_plain(cfg_r, cpu, u0.cpu())]
+        dx_c, c_c, di_c = _scenarios_apart(cr, cuda_mpc.exact_cost(cfg_r, prob, cr[0]), pr, ep)
+        out["cpu"] = {"n_apart": int(((dx_c > 2e-3) | (c_c > 1e-4) | (di_c > 1e-4)).sum()),
+                      "dx": float(dx_c.max()), "c_pl": float(c_c.max()),
+                      "di": float(di_c.max())}
+    return out
 
 
-def check_round_scenarios(tag: str, e: dict) -> str:
-    """Phase 3b's limits in all but LONG_ROUND_BRANCHES of the scenarios,
-    and every scenario within LONG_ROUND_OUTLIER_DX and _COST; the kernel's
-    cost within 1e-5 of the exact cost of its own thrusts in all but 1e-3
-    of them and within 5e-5 in every one. Returns the line."""
-    n_apart, c_own = len(e["apart"]), e["c_own"]
-    line = (f"{n_apart} of {e['B']} scenarios apart (beyond 2e-3 or exact costs 1e-4 rel; "
-            f"max |dx| {e['dx']:.3g}, cost rel {e['c_pl']:.3g}"
+def check_round_scenarios(tag: str, e: dict, allowed: float = None,
+                          dx_cap: float = LONG_ROUND_OUTLIER_DX,
+                          cost_cap: float = LONG_ROUND_OUTLIER_COST) -> str:
+    """Phase 3b's limits (2e-3; 1e-4 relative on the exact costs and on
+    the smallest relative improvements) in all but ``allowed`` scenarios
+    (default LONG_ROUND_BRANCHES of them), and every scenario within
+    ``dx_cap``, and ``cost_cap`` on both the costs and the improvements; the
+    kernel's cost within 1e-5 of the exact cost of its own thrusts in all
+    but 1e-3 of them and within 5e-5 in every one. Returns the line."""
+    c_own = e["c_own"]
+    n_apart = int(((e["dx_all"] > 2e-3) | (e["c_all"] > 1e-4) | (e["di_all"] > 1e-4)).sum())
+    if allowed is None:
+        allowed = LONG_ROUND_BRANCHES * e["B"]
+    line = (f"{n_apart} of {e['B']} scenarios apart (beyond 2e-3, or 1e-4 rel in exact "
+            f"costs or improvements; max |dx| {e['dx']:.3g}, cost rel {e['c_pl']:.3g}, "
+            f"improvement rel {e['di']:.3g}"
             + "".join(f"; scenario {i}: |dx| {d:.3g}, exact cost kernel {a:.9g} plain {b:.9g}"
                       for i, d, _, a, b in e["apart"][:3])
             + f"); cost vs the exact cost of own thrusts p99.9 "
               f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g} (the plain "
               f"loop's float32 cost: max {e['c_plain_own']:.3g})")
     check(e["finite"], f"{tag}: non-finite kernel output")
-    check(n_apart <= LONG_ROUND_BRANCHES * e["B"],
-          f"{tag}: {n_apart} of {e['B']} scenarios beyond phase 3b's limits: {line}")
-    check(e["dx"] <= LONG_ROUND_OUTLIER_DX and e["c_pl"] <= LONG_ROUND_OUTLIER_COST,
-          f"{tag}: a scenario beyond {LONG_ROUND_OUTLIER_DX:g} or exact costs "
-          f"{LONG_ROUND_OUTLIER_COST:g} rel apart: {line}")
+    check(n_apart <= allowed,
+          f"{tag}: {n_apart} of {e['B']} scenarios beyond phase 3b's limits (allowed "
+          f"{allowed:g}): {line}")
+    check(e["dx"] <= dx_cap and e["c_pl"] <= cost_cap and e["di"] <= cost_cap,
+          f"{tag}: a scenario beyond {dx_cap:g}, or exact costs or improvements "
+          f"{cost_cap:g} apart: {line}")
     check(share_within(c_own, 1e-5, 1e-3), f"{tag}: {line}")
     return line
 
@@ -3438,6 +3480,86 @@ def b1_rounds(config, prob, rounds: int, cg: int) -> dict:
     return out
 
 
+def solve_within_spread(tag: str, cfg, prob) -> tuple:
+    """The two-phase ``solve(method="auto")`` on ``prob`` with the launch
+    count set to 0 just before and read just after: 2 launches, finite
+    thrusts inside their bounds, the kernel's costs against the exact costs
+    of its thrusts; its converged share and mean cost against
+    ``solve(method="torch")`` on the card within the plain path's own
+    spread between the CPU and the card (at least phase 11's 0.002 and 1e-3,
+    which float32 does not hold past 64 steps, ROADMAP C.21): the mean cost
+    within twice that pair's difference, the share within twice that pair's
+    difference or three standard deviations of a share whose F flags flip
+    at random, 3 sqrt(F) / B with F the pair's flags apart, whichever is
+    larger. Returns (the launches, the record)."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    dev = prob.p0.device
+    torch.cuda.synchronize()
+    cuda_mpc.LAUNCHES = 0
+    res = se3_mpc.solve(cfg, prob, method="auto")
+    torch.cuda.synchronize()
+    n = cuda_mpc.LAUNCHES
+    check(n == 2, f"{tag}: solve() launched B1 {n} times, not 2")
+    for name, x in zip(res._fields, res):
+        if x is not None and x.dtype.is_floating_point:
+            check(bool(torch.isfinite(x).all()), f"{tag}: non-finite {name}")
+    lb, ub = cfg.thrust_bounds(device=dev)
+    check(bool(((res.thrusts >= lb - 1e-5) & (res.thrusts <= ub + 1e-5)).all()),
+          f"{tag}: thrusts outside thrust_bounds")
+    c_own = (res.cost.double() - cuda_mpc.exact_cost(cfg, prob, res.thrusts)).abs() / \
+        res.cost.double().abs()
+    check(share_within(c_own, 1e-5, 1e-3),
+          f"{tag}: cost vs the exact cost of its thrusts p99.9 "
+          f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}")
+    ref = se3_mpc.solve(cfg, prob, method="torch")
+    check(cuda_mpc.LAUNCHES == n, f"{tag}: the plain path launched B1")
+    # the plain path against itself: the same solve on the CPU
+    ref_cpu = se3_mpc.solve(cfg, costs.Problem(*[None if x is None else x.cpu()
+                                                 for x in prob]), method="torch")
+    conv, conv_p = float(res.converged.float().mean()), float(ref.converged.float().mean())
+    conv_c = float(ref_cpu.converged.float().mean())
+    # scenario by scenario: converged flags that differ from the card's
+    # plain path's, the kernel's and the plain path's on the CPU
+    flips = int((res.converged != ref.converged).sum())
+    flips_c = int((ref_cpu.converged.to(dev) != ref.converged).sum())
+    mc, mp, m_c = float(res.cost.mean()), float(ref.cost.mean()), float(ref_cpu.cost.mean())
+    rel, rel_c = abs(mc - mp) / abs(mp), abs(m_c - mp) / abs(mp)
+    held = abs(conv - conv_p) <= 0.002 and rel <= 1e-3
+    # the plain path parts from itself across devices as far as phase
+    # 11's limits are exceeded here (C.21): the kernel may part from it
+    # by at most that spread, and never by more than phase 11's limits
+    # where the spread is smaller. One pair's share difference is a single
+    # draw of the flips' noise (0.0020 from 364 flips at N=160), so the
+    # share's limit is also at least three of its standard deviations.
+    B = res.converged.numel()
+    lim_conv = max(0.002, 2 * abs(conv_c - conv_p), 3 * math.sqrt(flips_c) / B)
+    lim_cost = max(1e-3, 2 * rel_c)
+    rec = {"converged": conv, "converged_plain": conv_p, "converged_plain_cpu": conv_c,
+           "flags_apart": flips, "flags_apart_plain_cpu": flips_c,
+           "mean_cost": mc, "mean_cost_plain": mp, "mean_cost_plain_cpu": m_c,
+           "within_phase11_limits": held,
+           "limits": {"converged": lim_conv, "mean_cost_rel": lim_cost}}
+    line = (f"converged {conv:.4f} (plain path {conv_p:.4f}, apart {abs(conv - conv_p):.4f}; "
+            f"the plain path on the CPU {conv_c:.4f}, apart from the card's "
+            f"{abs(conv_c - conv_p):.4f}; limit {lim_conv:.4f}), mean cost {mc:.6g} (plain "
+            f"{mp:.6g}, rel {rel:.3g}; on the CPU {m_c:.6g}, rel {rel_c:.3g}; limit "
+            f"{lim_cost:.3g}); converged flags unlike the card's plain path's: kernel {flips}, "
+            f"the plain path on the CPU {flips_c} of {B}; phase 11's 0.002 and 1e-3: "
+            + ("held" if held else "not held (ROADMAP C.21)"))
+    check(abs(conv - conv_p) <= lim_conv and rel <= lim_cost,
+          f"{tag}: the kernel's solve parts from the plain path by more than the "
+          f"plain path's own spread across devices allows: {line}")
+    print(f"[{tag}] solve(method='auto') B={prob.p0.shape[0]}: {n} launches, thrusts inside "
+          f"their bounds, cost vs the exact cost of its thrusts p99.9 "
+          f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}; {line}",
+          flush=True)
+    return n, rec
+
+
 def ptxas_by_steps(log: str) -> dict:
     """Kernel B1's ptxas figures for each instantiation, keyed by the horizon
     steps a lane S: registers, stack frame and spill bytes, from the
@@ -3466,19 +3588,14 @@ def ptxas_by_steps(log: str) -> dict:
 
 
 def long_horizon_phase(dev, card: str) -> dict:
-    """Phase 18: kernel B1 at three and four horizon steps a lane.
+    """Phase 18 (18a-d): kernel B1 at three and four horizon steps a lane.
 
     18a: one Newton round at CG-2 with every hinge on, in both curvature
     modes, with and without a per-scenario v_cap, on the bench batch at each
     of LONG_ROUND_HORIZONS against the plain version, scenario by scenario
     (:func:`check_round_scenarios`). 18b: the two-phase ``solve()`` at the
-    default budget at each of LONG_SOLVE_HORIZONS, B=4096, with the launch
-    count set to 0 just before and read just after: 2 launches, finite
-    thrusts inside their bounds, the kernel's costs against the exact costs
-    of its thrusts; its converged share and mean cost against
-    ``solve(method="torch")`` within twice the plain path's own spread
-    between the CPU and the card (at least phase 11's 0.002 and 1e-3, which
-    float32 does not hold at these horizons, ROADMAP C.21); and each of
+    default budget at each of LONG_SOLVE_HORIZONS, B=4096, against the plain
+    path within twice its own spread (:func:`solve_within_spread`); and each of
     ROUND_BUDGETS against the plain loop, to the aggregate contract and
     scenario by scenario against the plain loop's own spread
     (:func:`b1_rounds`).
@@ -3489,8 +3606,8 @@ def long_horizon_phase(dev, card: str) -> dict:
     1e-3 m. 18d: the phase-1 solve at each of TIMED_HORIZONS, B=4096 and
     B=1: with the wrapper (CUDA events), the kernel alone (CUDA events
     around the launch), the plain version, the bound and the share of it
-    reached; and B1's ptxas registers and spills for each S. N = MAX_HORIZON + 1 must raise
-    before any launch."""
+    reached; and B1's ptxas registers and spills for each instantiation (S = 1-4,
+    and 5 for five or more steps a lane)."""
     import torch
 
     from dart_planner_tpu_torch import DroneState
@@ -3498,7 +3615,7 @@ def long_horizon_phase(dev, card: str) -> dict:
     from dart_planner_tpu_torch.common import frames
     from dart_planner_tpu_torch.common.di import create_default_container
     from dart_planner_tpu_torch.config import get_frozen_config
-    from dart_planner_tpu_torch.ops import _build, costs, cuda_mpc
+    from dart_planner_tpu_torch.ops import _build, cuda_mpc
     from dart_planner_tpu_torch.planning import se3_mpc
 
     t_phase = time.perf_counter()
@@ -3528,57 +3645,8 @@ def long_horizon_phase(dev, card: str) -> dict:
     for N in LONG_SOLVE_HORIZONS:
         cfg = base._replace(prediction_horizon=N)
         prob = bench_problem(se3_mpc, cfg, B_BENCH, N, dev)
-        torch.cuda.synchronize()
-        cuda_mpc.LAUNCHES = 0
-        res = se3_mpc.solve(cfg, prob, method="auto")
-        torch.cuda.synchronize()
-        n = cuda_mpc.LAUNCHES
+        n, solves[N] = solve_within_spread(f"18b N={N}", cfg, prob)
         launches += n
-        check(n == 2, f"18b N={N}: solve() launched B1 {n} times, not 2")
-        for name, x in zip(res._fields, res):
-            if x is not None and x.dtype.is_floating_point:
-                check(bool(torch.isfinite(x).all()), f"18b N={N}: non-finite {name}")
-        lb, ub = cfg.thrust_bounds(device=dev)
-        check(bool(((res.thrusts >= lb - 1e-5) & (res.thrusts <= ub + 1e-5)).all()),
-              f"18b N={N}: thrusts outside thrust_bounds")
-        c_own = (res.cost.double() - cuda_mpc.exact_cost(cfg, prob, res.thrusts)).abs() / \
-            res.cost.double().abs()
-        check(share_within(c_own, 1e-5, 1e-3),
-              f"18b N={N}: cost vs the exact cost of its thrusts p99.9 "
-              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}")
-        ref = se3_mpc.solve(cfg, prob, method="torch")
-        check(cuda_mpc.LAUNCHES == n, f"18b N={N}: the plain path launched B1")
-        # the plain path against itself: the same solve on the CPU
-        ref_cpu = se3_mpc.solve(cfg, costs.Problem(*[None if x is None else x.cpu()
-                                                     for x in prob]), method="torch")
-        conv, conv_p = float(res.converged.float().mean()), float(ref.converged.float().mean())
-        conv_c = float(ref_cpu.converged.float().mean())
-        mc, mp, m_c = float(res.cost.mean()), float(ref.cost.mean()), float(ref_cpu.cost.mean())
-        rel, rel_c = abs(mc - mp) / abs(mp), abs(m_c - mp) / abs(mp)
-        held = abs(conv - conv_p) <= 0.002 and rel <= 1e-3
-        # the plain path parts from itself across devices as far as phase
-        # 11's limits are exceeded here (C.21): the kernel may part from it
-        # by at most twice that spread, and never by more than phase 11's
-        # limits where the spread is smaller
-        lim_conv = max(0.002, 2 * abs(conv_c - conv_p))
-        lim_cost = max(1e-3, 2 * rel_c)
-        solves[N] = {"converged": conv, "converged_plain": conv_p, "converged_plain_cpu": conv_c,
-                     "mean_cost": mc, "mean_cost_plain": mp, "mean_cost_plain_cpu": m_c,
-                     "within_phase11_limits": held,
-                     "limits": {"converged": lim_conv, "mean_cost_rel": lim_cost}}
-        line = (f"converged {conv:.4f} (plain path {conv_p:.4f}, apart {abs(conv - conv_p):.4f}; "
-                f"the plain path on the CPU {conv_c:.4f}, apart from the card's "
-                f"{abs(conv_c - conv_p):.4f}; limit {lim_conv:.4f}), mean cost {mc:.6g} (plain "
-                f"{mp:.6g}, rel {rel:.3g}; on the CPU {m_c:.6g}, rel {rel_c:.3g}; limit "
-                f"{lim_cost:.3g}); phase 11's 0.002 and 1e-3: "
-                + ("held" if held else "not held (ROADMAP C.21)"))
-        check(abs(conv - conv_p) <= lim_conv and rel <= lim_cost,
-              f"18b N={N}: the kernel's solve parts from the plain path by more than twice "
-              f"the plain path's own spread across devices: {line}")
-        print(f"[18b N={N}] solve(method='auto') B={B_BENCH}: {n} launches, thrusts inside "
-              f"their bounds, cost vs the exact cost of its thrusts p99.9 "
-              f"{float(c_own.quantile(0.999)):.3g} max {float(c_own.max()):.3g}; {line}",
-              flush=True)
         rounds[N] = {f"{r}x{cg}": b1_rounds(cfg, prob, r, cg) for r, cg in ROUND_BUDGETS}
 
     sc = DEMO_SCENARIOS[DI_SCENARIO]
@@ -3622,21 +3690,10 @@ def long_horizon_phase(dev, card: str) -> dict:
               + ("held" if dpos <= 1e-3 else "not held, float32 chaos at the full budget "
                  "(ROADMAP C.21), not gated") + ")", flush=True)
 
-    long = base._replace(prediction_horizon=cuda_mpc.MAX_HORIZON + 1, tail_iterations=0)
-    one = bench_problem(se3_mpc, long, 1, 0, dev)
-    before = cuda_mpc.LAUNCHES
-    try:
-        cuda_mpc.solve_thrusts_fused(long, one, se3_mpc.initialize_thrusts(long, one))
-        raised = False
-    except ValueError:
-        raised = True
-    check(raised and cuda_mpc.LAUNCHES == before,
-          f"N={cuda_mpc.MAX_HORIZON + 1} did not raise before a launch")
-
     ptxas = ptxas_by_steps(_build.build_log)
     if _build.build_log:
-        check(sorted(ptxas) == [1, 2, 3, 4] and all(len(v) == 4 for v in ptxas.values()),
-              f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-4")
+        check(sorted(ptxas) == [1, 2, 3, 4, 5] and all(len(v) == 4 for v in ptxas.values()),
+              f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-5")
     times = {}
     fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
     for N in TIMED_HORIZONS:
@@ -3659,13 +3716,310 @@ def long_horizon_phase(dev, card: str) -> dict:
     times["solves"] = {f"N{N}": v for N, v in solves.items()}
     times["rounds"] = {f"N{N}": v for N, v in rounds.items()}
     print(f"[18 long horizons] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
-          f"B1 ptxas by steps a lane: "
+          f"B1 ptxas by steps a lane (S=5: five or more, counted at run time): "
           + ("; ".join(f"S={s}: {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "
                        f"{v.get('spill_stores')} / {v.get('spill_loads')} B spill stores / loads"
-                       for s, v in sorted(ptxas.items())) or "library reused, no build log")
-          + f"; N={cuda_mpc.MAX_HORIZON + 1} raises before a launch", flush=True)
+                       for s, v in sorted(ptxas.items())) or "library reused, no build log"),
+          flush=True)
     return {"launches": launches, "max_abs_err": max(err_rounds), "times": times,
             "di_max_abs_err_m": max(di.values())}
+
+
+# phase 18e (ROADMAP C.23): a horizon no phase before it plans at, so its
+# cold start's inverse is taken after the fork, not read from the cache; and
+# how long that cold start and its solve may take before the smoke fails
+FORK_HORIZON = 99
+FORK_WATCHDOG_S = 120.0
+
+
+def fork_cold_start_phase(dev, card: str) -> int:
+    """Phase 18e (ROADMAP C.23): with CUDA started in this process,
+    ``ProcessControlLoop`` forks it, runs and stops; then the cold start at
+    FORK_HORIZON on the bench batch (its Hessian inverse's cache misses once:
+    it was not cached) and a two-phase solve through B1, in a thread under a
+    watchdog: past FORK_WATCHDOG_S the smoke fails with that thread's stack.
+    Returns B1's launches (2)."""
+    import threading
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+    from dart_planner_tpu_torch.runtime.multiprocess_loop import ProcessControlLoop
+
+    t_phase = time.perf_counter()
+    cfg = se3_mpc.SE3MPCConfig(prediction_horizon=FORK_HORIZON)
+    prob = bench_problem(se3_mpc, cfg, B_BENCH, FORK_HORIZON, dev)
+    host = {"position": np.zeros(3), "velocity": np.ones(3)}
+    loop = ProcessControlLoop(_loop_fn, frequency_hz=PROCESS_LOOP_HZ)
+    loop.start()
+    try:
+        loop.send_state(host)
+        while loop.get_output(timeout=0.05) is None and time.perf_counter() - t_phase < 10:
+            pass
+    finally:
+        loop.stop()
+    check(loop.error is None and not loop.running and loop.last_output == _loop_fn(host),
+          f"18e: the process loop gave {loop.last_output}, error {loop.error}, "
+          f"running {loop.running}")
+    misses = se3_mpc._quadratic_hessian_inverse.cache_info().misses
+    out = {}
+
+    def cold_start_and_solve():
+        try:
+            t0 = time.perf_counter()
+            u0 = se3_mpc.initialize_thrusts(cfg, prob)
+            torch.cuda.synchronize()
+            out["cold_ms"] = 1e3 * (time.perf_counter() - t0)
+            cuda_mpc.LAUNCHES = 0
+            out["res"] = se3_mpc.solve(cfg, prob, u0, method="auto")
+            torch.cuda.synchronize()
+            out["launches"] = cuda_mpc.LAUNCHES
+        except BaseException as e:  # raised again on the main thread
+            out["error"] = e
+
+    worker = threading.Thread(target=cold_start_and_solve, daemon=True)
+    worker.start()
+    worker.join(FORK_WATCHDOG_S)
+    if worker.is_alive():
+        stack = "".join(traceback.format_stack(sys._current_frames()[worker.ident]))
+        raise SmokeFailure(f"18e: the cold start at N={FORK_HORIZON} and its solve after the "
+                           f"fork did not end within {FORK_WATCHDOG_S:g} s (ROADMAP C.23); "
+                           f"the thread's stack:\n{stack}")
+    if "error" in out:
+        raise out["error"]
+    check(se3_mpc._quadratic_hessian_inverse.cache_info().misses == misses + 1,
+          f"18e: N={FORK_HORIZON}'s Hessian inverse was cached before the fork")
+    check(out["launches"] == 2, f"18e: solve() launched B1 {out['launches']} times, not 2")
+    check(all(bool(torch.isfinite(x).all()) for x in out["res"]
+              if x is not None and x.dtype.is_floating_point), "18e: non-finite solve output")
+    print(f"[18e fork, then a cold start] ({card}) ProcessControlLoop forked this process "
+          f"after CUDA started, ran and stopped; then the cold start at N={FORK_HORIZON}, not "
+          f"cached before (its inverse by Cholesky in torch on the CPU), B={B_BENCH}, in "
+          f"{out['cold_ms']:.1f} ms and solve() through B1 ({out['launches']} launches), "
+          f"converged {float(out['res'].converged.float().mean()):.4f}, under a "
+          f"{FORK_WATCHDOG_S:g} s watchdog; {time.perf_counter() - t_phase:.1f} s (host clock)",
+          flush=True)
+    return out["launches"]
+
+
+# phase 18f: B1 past 128 steps, one instantiation for five or more steps a
+# lane: one CG-2 round and solve() at the fifth slot's first step (129), a
+# full fifth slot (160), eight slots (256) and the smallest horizon whose
+# arena spills from shared memory to global scratch (SPILL_HORIZON: 73 floats
+# a step, csrc/mpc_solve.cu), at B=64; the two-phase solve at N=160,
+# B=4096; times at 160 and SPILL_HORIZON
+PAST_128_HORIZONS = (129, 160, 256)
+SPILL_HORIZON = 769
+PAST_128_B = 64
+PAST_128_SOLVE = 160
+PAST_128_TIMED = (160, SPILL_HORIZON)
+
+
+def spill_horizon(lib, K: int) -> int:
+    """The smallest N at which ``mpc_scratch_floats`` asks for global
+    scratch (a warp's arena and its K spheres past the card's shared
+    memory a block), by steps a lane from five on."""
+    from dart_planner_tpu_torch.ops import cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    for steps in range(5, 4096):
+        N = 32 * (steps - 1) + 1
+        params = cuda_mpc._params(se3_mpc.SE3MPCConfig(prediction_horizon=N), 1, K, True)
+        n = lib.mpc_scratch_floats(ctypes.byref(params))
+        check(n >= 0, f"mpc_scratch_floats failed: CUDA error {-n}")
+        if n > 0:
+            return N
+    raise SmokeFailure("no horizon spills the arena")
+
+
+def past_128_phase(dev, card: str) -> dict:
+    """Phase 18f: kernel B1 past 128 horizon steps (ROADMAP C.24).
+
+    The smallest horizon whose arena spills to global scratch is read from
+    the library (``mpc_scratch_floats``) and must be SPILL_HORIZON, which
+    the kernel's header states. At each of PAST_128_HORIZONS and
+    SPILL_HORIZON, B=PAST_128_B: one Newton round at CG-2 with every hinge
+    on, in both curvature modes, with and without a per-scenario v_cap,
+    against the plain loop on the card scenario by scenario with the
+    iterates' costs in float64 (:func:`b1_round_scenarios`): every scenario
+    within phase 3b's limits (2e-3; 1e-4 relative; improvements 1e-4) but
+    at most twice as many, plus one, as the plain loop on the CPU parts from
+    itself on the card, and those within 5x the limits or 5x twice the
+    plain loop's largest spread (:func:`check_round_scenarios`); and
+    ``solve(method="auto")``: 2 launches, finite, no plain path and no
+    raise. The two-phase solve at PAST_128_SOLVE, B=4096, against the plain
+    path within its own spread (:func:`solve_within_spread`). B1's
+    ptxas lines for the run-time instantiation (S=5), and its times at
+    PAST_128_TIMED, B=4096 and B=1: with the wrapper, alone (CUDA events
+    around the launch), the plain version and the bound."""
+    import torch
+
+    from dart_planner_tpu_torch.ops import _build, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    t_phase = time.perf_counter()
+    base = se3_mpc.SE3MPCConfig(tail_iterations=0)
+    lib = cuda_mpc._library()
+    spill = spill_horizon(lib, base.max_obstacles)
+    check(spill == SPILL_HORIZON,
+          f"18f: the arena spills from N={spill}, not SPILL_HORIZON={SPILL_HORIZON}")
+    launches, scratch = 0, {}
+    err = {False: [], True: []}  # |dx| of the one-round checks, by arena in global scratch
+    for N in PAST_128_HORIZONS + (SPILL_HORIZON,):
+        cfg = base._replace(prediction_horizon=N)
+        prob = bench_problem(se3_mpc, cfg, PAST_128_B, N, dev)
+        params = cuda_mpc._params(cfg, PAST_128_B, base.max_obstacles, True)
+        scratch[N] = lib.mpc_scratch_floats(ctypes.byref(params))
+        check((scratch[N] > 0) == (N >= SPILL_HORIZON),
+              f"18f N={N}: {scratch[N]} floats of global scratch")
+        u0 = se3_mpc.initialize_thrusts(cfg, prob)
+        probv = prob._replace(v_cap=torch.full((PAST_128_B,), 3.0, dtype=torch.float32,
+                                               device=dev))
+        for label, pr in (("static", prob), ("v_cap=3", probv)):
+            for stage, n_gn in (("GN", 1), ("full", 0)):
+                cfg_r = cfg._replace(max_iterations=1, cg_iterations=2, gn_warmup_iterations=n_gn)
+                tag = f"18f N={N} one round {label} {stage}"
+                e = b1_round_scenarios(cfg_r, pr, u0, with_cpu=True)
+                c = e["cpu"]
+                # phase 3b's limits in every scenario but as many as twice
+                # the plain loop's own count apart between the CPU and the
+                # card, plus one (a count of none of 64 bounds the rate only
+                # to a few in a hundred); those within 5x 3b's limits, or 5x
+                # twice the plain loop's largest spread where that is larger
+                allowed = 2 * c["n_apart"] + 1
+                dx_cap = 5 * max(2e-3, 2 * c["dx"])
+                cost_cap = 5 * max(1e-4, 2 * c["c_pl"], 2 * c["di"])
+                print(f"[{tag}] the plain loop on the CPU against itself on the card: "
+                      f"{c['n_apart']} of {PAST_128_B} scenarios beyond phase 3b's limits, max "
+                      f"|dx| {c['dx']:.3g}, exact cost rel {c['c_pl']:.3g}, improvement rel "
+                      f"{c['di']:.3g}; so B1 may part {allowed} scenarios, each within "
+                      f"{dx_cap:.3g} and {cost_cap:.3g}", flush=True)
+                line = check_round_scenarios(tag, e, allowed=allowed, dx_cap=dx_cap,
+                                             cost_cap=cost_cap)
+                print(f"[{tag}] B={PAST_128_B} CG-2, arena in "
+                      f"{'global scratch' if scratch[N] else 'shared memory'}: {line}",
+                      flush=True)
+                err[scratch[N] > 0].append(e["dx"])
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = 0
+        res = se3_mpc.solve(se3_mpc.SE3MPCConfig(prediction_horizon=N), prob, method="auto")
+        torch.cuda.synchronize()
+        n = cuda_mpc.LAUNCHES
+        launches += n
+        check(n == 2, f"18f N={N}: solve(method='auto') launched B1 {n} times, not 2")
+        check(all(bool(torch.isfinite(x).all()) for x in res
+                  if x is not None and x.dtype.is_floating_point),
+              f"18f N={N}: non-finite solve output")
+        print(f"[18f N={N}] solve(method='auto') B={PAST_128_B}: {n} launches of B1, arena "
+              f"in {'global scratch' if scratch[N] else 'shared memory'}, converged "
+              f"{float(res.converged.float().mean()):.4f}", flush=True)
+
+    cfg = se3_mpc.SE3MPCConfig(prediction_horizon=PAST_128_SOLVE)
+    n, solve_rec = solve_within_spread(f"18f N={PAST_128_SOLVE}", cfg,
+                                       bench_problem(se3_mpc, cfg, B_BENCH, PAST_128_SOLVE, dev))
+    launches += n
+
+    ptxas = ptxas_by_steps(_build.build_log).get(5, {})
+    times = {}
+    fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
+    for N in PAST_128_TIMED:
+        cfg = base._replace(prediction_horizon=N)
+        for B in (B_BENCH, 1):
+            prob = bench_problem(se3_mpc, cfg, B, 0 if B > 1 else 1, dev)
+            u0 = se3_mpc.initialize_thrusts(cfg, prob)
+            reps = 3 if N >= SPILL_HORIZON and B > 1 else 7
+            t_k = cuda_time_ms(lambda: fused(cfg, prob, u0), reps=reps, warmup=1)
+            d_k = b1_alone_ms(cfg, prob, u0, reps=reps)
+            t_p = cuda_time_ms(lambda: plain(cfg, prob, u0), reps=3, warmup=1)
+            bnd, by = b1_bound(cfg, prob)
+            times[f"N{N}_B{B}"] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
+                                   "bound_by": by, "share": bnd / d_k}
+            print(f"[18f times] ({card}) phase-1 solve N={N} (S={-(-N // 32)}, arena in "
+                  f"{'global scratch' if N >= SPILL_HORIZON else 'shared memory'}) B={B}, "
+                  f"median CUDA-event ms: kernel {t_k:.4f} (alone {d_k:.4f}, CUDA events around "
+                  f"the launch), plain {t_p:.4f}, bound {bnd:.3g} ({by}; share of the kernel "
+                  f"alone {bnd / d_k:.3g})", flush=True)
+    print(f"[18f past 128] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"{launches} launches of B1 in the solves; one CG-2 round at N = "
+          f"{', '.join(map(str, PAST_128_HORIZONS))} (max |dx| {max(err[False]):.3g}) and "
+          f"{SPILL_HORIZON} (global scratch, max |dx| {max(err[True]):.3g}); "
+          f"the arena spills to global scratch from N={spill} (K={base.max_obstacles}); B1 "
+          f"ptxas at five or more steps a lane (S=5): "
+          + (f"{ptxas.get('registers')} registers, {ptxas.get('stack_bytes')} B stack, "
+             f"{ptxas.get('spill_stores')} / {ptxas.get('spill_loads')} B spill stores / loads"
+             if ptxas else "library reused, no build log"), flush=True)
+    if _build.build_log:
+        check(len(ptxas) == 4, f"18f: no ptxas lines for S=5: {ptxas}")
+    return {"launches": launches, "max_abs_err": max(err[False]),
+            "max_abs_err_global_scratch": max(err[True]), "spill_horizon": spill,
+            "times": {**times, "ptxas_S5": ptxas, "solve_N160": solve_rec}}
+
+
+# phase 19: the convergence diagnostic's horizons (ROADMAP A.2, C.21)
+CONVERGENCE_HORIZONS = (20, 80, 100)
+# how far its ship row's converged share at N=20 may be from phase 4's (the
+# same batch and solve)
+CONVERGENCE_SHIP_TOL = 0.002
+
+
+def convergence_phase(dev, card: str, conv_phase4: float) -> dict:
+    """Phase 19: ``scripts/diag_convergence_torch.py``'s functions on the
+    card at each of CONVERGENCE_HORIZONS, B=4096: the ground truth (the
+    plain path, 60 rounds at CG-25, no tail), then its rows for the plain
+    path and B1 (the uniform budgets, the ship row, the restart row), each
+    with its time beside the card. Every cost finite, every share in [0, 1];
+    B1's ship row at N=20 within CONVERGENCE_SHIP_TOL of phase 4's converged
+    share. Returns B1's launches and the rows."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "diag_convergence_torch",
+        pathlib.Path(__file__).resolve().parent / "scripts" / "diag_convergence_torch.py")
+    diag = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(diag)
+    label = diag.card_label(dev)
+    launches, out = 0, {}
+    for N in CONVERGENCE_HORIZONS:
+        config, prob = diag.make_batch(B_BENCH, horizon=N, device=dev)
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = 0
+        gt, ms = diag.ground_truth(config, prob)
+        check(cuda_mpc.LAUNCHES == 0, f"19 N={N}: the plain ground truth launched B1")
+        gt_cost = gt.cost.double().cpu().numpy()
+        check(bool(np.isfinite(gt_cost).all()), f"19 N={N}: non-finite ground truth")
+        print(f"[19 N={N}] ground truth (60 rounds of CG-25, plain path) converged "
+              f"{float(gt.converged.float().mean()):.4f}, median cost {np.median(gt_cost):.3f} "
+              f"in {ms:.3f} ms ({label})", flush=True)
+        rows = []
+        for r in diag.rows(config, prob, gt_cost, ("torch", "cuda"), quick=False):
+            check(np.isfinite([r["p95"], r["max"], r["ms"]]).all() and 0 <= r["conv"] <= 1,
+                  f"19 N={N}: {r}")
+            print(f"[19 N={N}] {diag.format_row(r, label)}", flush=True)
+            rows.append(r)
+        n = cuda_mpc.LAUNCHES
+        launches += n
+        check(n >= len(diag.UNIFORM_BUDGETS) + 4, f"19 N={N}: {n} launches of B1 in the rows")
+        out[N] = rows
+    ship = next(r for r in out[20] if r["method"] == "cuda" and r["budget"].startswith("ship "))
+    check(abs(ship["conv"] - conv_phase4) <= CONVERGENCE_SHIP_TOL,
+          f"19: the ship row's converged share {ship['conv']:.4f} at N=20 is not within "
+          f"{CONVERGENCE_SHIP_TOL} of phase 4's {conv_phase4:.4f}")
+    print(f"[19 convergence] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"{launches} launches of B1; the ship row at N=20 converged {ship['conv']:.4f} "
+          f"(phase 4: {conv_phase4:.4f})", flush=True)
+    return {"launches": launches,  # the rows in JSON: a converged cohort's p95 may be NaN
+            "rows": {f"N{N}": [{k: (None if isinstance(v, float) and v != v else v)
+                                for k, v in r.items()} for r in rows]
+                     for N, rows in out.items()}}
 
 
 def run(baseline_source=None) -> dict:
@@ -3737,12 +4091,6 @@ def run(baseline_source=None) -> dict:
     scen = scenarios_phase(dev, card)
     sweep = sweep_phase(dev, card)
     fig_launches = scen["launches"]["figure8"]
-    # -- 18. kernel B1 at three and four horizon steps a lane. It runs here,
-    # before the mission phases: after 14a's and 15a's traced flights
-    # torch.profiler saw no device time in 18d's kernel, and after 17e's
-    # fork the parent's first multithreaded LAPACK call (numpy's 100 x 100
-    # inverse in the N=100 cold start) hung (ROADMAP C.23)
-    lh = long_horizon_phase(dev, card)
     # -- 14. the three-layer mission stack: hardware mission, three-layer loop
     mission = mission_phase(dev, card)
     layers = three_layer_phase(dev, card, mission["per_plan"])
@@ -3762,6 +4110,14 @@ def run(baseline_source=None) -> dict:
     airsim_phase(dev, card)
     process_loop_phase(dev, card, secure["vehicle"])
     print(f"[17 adapters] ({card}) {time.perf_counter() - t17:.1f} s (host clock)", flush=True)
+    # -- 18. kernel B1 past 64 horizon steps, after 17e's fork: the order in
+    # which the cold start's inverse once hung (ROADMAP C.23); 18d and 18f
+    # time B1 by CUDA events, which late phases do not lose
+    lh = long_horizon_phase(dev, card)
+    fork_launches = fork_cold_start_phase(dev, card)
+    past = past_128_phase(dev, card)
+    # -- 19. the convergence diagnostic at N = 20, 80 and 100 ------------------
+    conv = convergence_phase(dev, card, b1["converged"])
 
     replans = mc_config().num_replans
     return {
@@ -3771,6 +4127,10 @@ def run(baseline_source=None) -> dict:
                 "route": "cuda",
                 "source": cuda_mpc.SOURCE,
                 "replaces": cuda_mpc.REPLACES,
+                "scope": (f"any N >= 1: one instantiation each for 1-4 steps a lane (N <= "
+                          f"128), one for five or more with the step count read at run time, "
+                          f"its arena in shared memory up to N={past['spill_horizon'] - 1} "
+                          f"and in global scratch from N={past['spill_horizon']} (K=8)"),
                 "launches": mc["launches"]["B1"],
                 "launches_by_path": {"closed_loop": mc["launches"]["B1"],
                                      "solve": b1["launches"], "fleet": fleet["launches"],
@@ -3785,7 +4145,10 @@ def run(baseline_source=None) -> dict:
                                      "web_demo": demo["launches"],
                                      "mavlink_mission": mav["launches"],
                                      "secure_interface": secure["launches"],
-                                     "long_horizon": lh["launches"]},
+                                     "long_horizon": lh["launches"],
+                                     "fork_cold_start": fork_launches,
+                                     "past_128": past["launches"],
+                                     "convergence": conv["launches"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
@@ -3803,8 +4166,12 @@ def run(baseline_source=None) -> dict:
                 "mavlink_max_abs_err_m": mav["parity_m"],
                 "secure_interface_max_abs_err_m": secure["parity_m"],
                 "long_horizon_di_max_abs_err_m": lh["di_max_abs_err_m"],
+                # one CG-2 round at N=769, the arena in global scratch, where
+                # the plain loop on the CPU parts from itself on the card by
+                # as much: apart from the headline
+                "global_scratch_max_abs_err": past["max_abs_err_global_scratch"],
                 "max_abs_err": max(b1["max_abs_err"], err_k11, fleet["max_abs_err"],
-                                   lh["max_abs_err"]),
+                                   lh["max_abs_err"], past["max_abs_err"]),
                 "ms": b1["ms"],
                 "device_ms": b1["device_ms"],
                 "plain_ms": b1["plain_ms"],
@@ -3814,7 +4181,8 @@ def run(baseline_source=None) -> dict:
                 "times": {**b1["times"], "fleet_131072": {
                     k: fleet[k] for k in ("ms", "ms_without_stats", "device_ms",
                                           "bound_ms", "bound_by", "peak_bytes")},
-                          "long_horizon": lh["times"]},
+                          "long_horizon": lh["times"], "past_128": past["times"]},
+                "convergence": conv["rows"],
             },
             {
                 "name": "tick_block (B2, closed-loop control and physics ticks)",

@@ -9,10 +9,12 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
@@ -31,8 +33,20 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// the opt-in shared memory a block may take: an H100's 232,448 bytes unless
+// the program that links the emulation sets it otherwise
+extern int emu_smem_optin;
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = emu_smem_optin;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "CPU emulation"; }
 
@@ -68,6 +82,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp() { emu_warp->arrive_and_wait(); }
+inline void __trap() { std::abort(); }
 
 // kernel<<<grid, block, shared, stream>>>(args...)
 template <class K, class... A>

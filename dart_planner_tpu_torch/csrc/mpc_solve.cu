@@ -22,18 +22,26 @@
 // (the TPU kernel ran the CG matvec and the line-search deltas in bf16).
 //
 // Layout: one warp per scenario, lane k = horizon step k; a lane holds S =
-// ceil(N / 32) steps, k, k+32, k+64, k+96, in slots 0..S-1, so N runs up to
-// 128 (the JAX kernel takes any N; both packages' front doors accept N <=
-// 100). At one or two steps a lane every per-step vector lives in
-// registers. At three or four, the per-step data that a CG step only reads
-// (the curvature blocks and free, 21 floats a step) and the goal and c0 live
-// in the warp's shared memory, laid out [slot][field][lane]: each lane reads
-// and writes only its own column, so a warp's access is 32 consecutive words
-// (no bank conflict) and needs no barrier. Lanes with k >= N hold exact
-// zeros and free = 0. Per-scenario sums use a __shfl_xor_sync butterfly,
-// which leaves a bit-identical value on every lane, so every branch decision
-// is warp-uniform. The line search's alphas, any count of them, follow the
-// two step vectors in the constant block.
+// ceil(N / 32) steps, k, k+32, k+64, ..., in slots 0..S-1, so any N >= 1
+// runs (as the JAX kernel takes any N). At one or two steps a lane every
+// per-step vector lives in registers. At three or four, the per-step data
+// that a CG step only reads (the curvature blocks and free, 21 floats a
+// step) and the goal and c0 live in the warp's shared memory, laid out
+// [slot][field][lane]: each lane reads and writes only its own column, so a
+// warp's access is 32 consecutive words (no bank conflict) and needs no
+// barrier. From five steps a lane on, one instantiation (S = kDyn) reads
+// the step count at run time and keeps every per-step vector in that
+// layout: the thrusts, the gradient, the CG vectors, the rollouts and their
+// scans' temporaries as well, 73 floats a step (kDynFields, reckoned from
+// the code below), in blocks of one warp. That arena lies in dynamic shared
+// memory while the block's 4K + 32 x 73 x S floats fit the card's opt-in
+// maximum a block (read at launch: 232,448 B on an H100, so S <= 24, N <=
+// 768 for K <= 512), else in a global scratch of B x 32 x 73 x S floats
+// that the wrapper allocates (from N = 769); one float* serves both. Lanes
+// with k >= N hold exact zeros and free = 0. Per-scenario sums use a
+// __shfl_xor_sync butterfly, which leaves a bit-identical value on every
+// lane, so every branch decision is warp-uniform. The line search's alphas,
+// any count of them, follow the two step vectors in the constant block.
 //
 // The constant maps are structured (ops/dynamics.py): S_v[k,j] = dt and
 // S_p[k,j] = dt^2 (k - j - 1/2) for j < k. So every map is applied as warp
@@ -99,6 +107,18 @@
 // warp's chain, by S-1 carries a scan: at B=4096 the kernel alone takes
 // ~1.4 ms at N=40, ~2.4 ms at S=3 and ~3.1 ms at S=4 (chip_smoke.py
 // phase 18d).
+// From S = 5 on every vector access goes through the arena, and a warp's
+// arena of 45.6 KB (S=5) to 219 KB (S=24) of shared memory leaves an SM 4
+// to 1 resident warps. That instantiation is compiled apart, in
+// mpc_solve_steps.cu, which includes this file with B1_RUN_TIME_STEPS
+// defined: there its loops over a lane's slots stay rolled ("unroll 1"),
+// where up to four steps a lane they unroll fully. nvcc unrolls a loop
+// under `#pragma unroll` whose count is read at run time anyway, by a
+// large factor behind a remainder loop, in every inlined call: built that
+// way the kernels took 83-96 s to compile, rolled ~19 s (CUDA 12.8;
+// chip_smoke.py's build line, PERF.md). It is right, not fast: at B=4096
+// the kernel alone takes ~33 ms at N=160 and ~254 ms at N=769, its arena
+// in global scratch (chip_smoke.py phase 18f).
 //
 // What it does not use, and why: no tensor cores (once the maps are scans no
 // product is left large enough for an mma tile, and a TF32 product would
@@ -110,21 +130,34 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// How a loop over a lane's slots unrolls: fully up to four steps a lane,
+// where the count is S; not at all in mpc_solve_steps.cu, where it is read
+// at run time (see above).
+#ifdef B1_RUN_TIME_STEPS
+#define B1_UNROLL_SLOTS _Pragma("unroll 1")
+#else
+#define B1_UNROLL_SLOTS _Pragma("unroll")
+#endif
+
 namespace {
 
-constexpr int kMaxSteps = 4;  // horizon steps a lane: N <= 128
+// S = kDyn stands for five or more horizon steps a lane: their count,
+// ceil(N / 32), is read at run time (Arena::n).
+constexpr int kDyn = 5;
 
-// Scenarios (warps) per block at S steps a lane: 4, and 2 from three steps
-// on, where each warp holds 10-14 KB of shared memory; so a block stays
-// under the 48 KB every launch gets without cudaFuncSetAttribute, and 4
-// resident blocks still give 8 warps an SM.
+// Scenarios (warps) per block at S steps a lane: 4; 2 at three and four,
+// where each warp holds 10-14 KB of shared memory, so a block stays under
+// the 48 KB every launch gets without cudaFuncSetAttribute, and 4 resident
+// blocks still give 8 warps an SM; 1 from five on, where a warp's arena is
+// 45.6 KB or more.
 template <int S>
-constexpr int kWarps = S >= 3 ? 2 : 4;
+constexpr int kWarps = S == kDyn ? 1 : (S >= 3 ? 2 : 4);
 // Resident blocks an SM __launch_bounds__ asks for: 4 at one step a lane
-// (<= 128 registers), 2 at two (<= 255), 4 of 2 warps from three on
-// (<= 255).
+// (<= 128 registers), 2 at two (<= 255), 4 of 2 warps at three and four
+// (<= 255), 16 of one warp from five on (<= 128: a lane keeps only a
+// step's scalars in registers there).
 template <int S>
-constexpr int kMinBlocks = S == 2 ? 2 : 4;
+constexpr int kMinBlocks = S == kDyn ? 16 : (S == 2 ? 2 : 4);
 constexpr unsigned kFull = 0xffffffffu;
 
 }  // namespace
@@ -143,12 +176,9 @@ struct MpcParams {
 
 namespace {
 
-template <int S>
-using Vec = float[S][3];
-
 // F floats for each of a lane's S steps, read as x[s][f]: registers at one
-// or two steps a lane; at three or four, this lane's column of a block of
-// the warp's shared memory laid out [slot][field][lane].
+// or two steps a lane; from three on, this lane's column of a block of the
+// warp's arena laid out [slot][field][lane].
 template <int S, int F, bool Shared = (S >= 3)>
 struct Steps {
   float v[S][F];
@@ -168,17 +198,64 @@ struct Steps<S, F, true> {
   __device__ __forceinline__ SharedRow<F> operator[](int s) const { return {p + 32 * F * s}; }
 };
 
-// The next S x F x 32 floats of a warp's shared arena as a Steps<S, F>
-// (registers at S <= 2, which take nothing from the arena).
-template <int S, int F>
-__device__ __forceinline__ Steps<S, F> take(float*& arena, int lane) {
-  if constexpr (S >= 3) {
-    const Steps<S, F> x{arena + lane};
-    arena += 32 * F * S;
+// From five steps a lane on, the slot count travels with the vector. No
+// default constructor: every such vector is taken from the arena.
+template <int F>
+struct Steps<kDyn, F, true> {
+  float* p;
+  int n;  // slots, ceil(N / 32)
+  __device__ __forceinline__ Steps(float* p_, int n_) : p(p_), n(n_) {}
+  __device__ __forceinline__ SharedRow<F> operator[](int s) const { return {p + 32 * F * s}; }
+};
+
+// A per-step 3-vector (thrusts, gradients, CG vectors, rollouts): registers
+// up to four steps a lane, the arena from five on.
+template <int S>
+using Vec = Steps<S, 3, S == kDyn>;
+
+// Slots a lane holds: S, or at S = kDyn the count read at run time.
+template <int S, class V>
+__device__ __forceinline__ int slots(const V& x) {
+  if constexpr (S == kDyn) {
+    return x.n;
+  } else {
+    return S;
+  }
+}
+
+// A warp's arena: this lane's column of a region of shared or global memory
+// laid out [slot][field][lane]. take() hands out the next F fields of every
+// slot; a callee takes from its own copy, so what it took is free again
+// when it returns: the arena is a stack. At S = kDyn a take past the
+// arena's end traps.
+struct Arena {
+  float* p;  // this lane's next free float
+  int n;     // slots a lane, ceil(N / 32)
+  int left;  // floats of the warp's arena not yet taken
+};
+
+// The next F fields of every slot of the arena as a Steps<S, F, Shared>
+// (registers take nothing from it).
+template <int S, int F, bool Shared = (S >= 3)>
+__device__ __forceinline__ Steps<S, F, Shared> take(Arena& ar) {
+  if constexpr (!Shared) {
+    return {};
+  } else if constexpr (S == kDyn) {
+    ar.left -= 32 * F * ar.n;
+    if (ar.left < 0) __trap();
+    const Steps<S, F, true> x(ar.p, ar.n);
+    ar.p += 32 * F * ar.n;
     return x;
   } else {
-    return Steps<S, F>{};
+    const Steps<S, F, true> x{ar.p};
+    ar.p += 32 * F * S;
+    return x;
   }
+}
+
+template <int S>
+__device__ __forceinline__ Vec<S> vec(Arena& ar) {
+  return take<S, 3, S == kDyn>(ar);
 }
 
 __device__ __forceinline__ float wsum(float v) {
@@ -190,16 +267,16 @@ __device__ __forceinline__ float wsum(float v) {
 template <int S>
 __device__ __forceinline__ float vsum(const Vec<S>& x) {
   float acc = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) acc += x[s][0] + x[s][1] + x[s][2];
+B1_UNROLL_SLOTS
+  for (int s = 0; s < slots<S>(x); ++s) acc += x[s][0] + x[s][1] + x[s][2];
   return wsum(acc);
 }
 
 template <int S>
 __device__ __forceinline__ float vdot(const Vec<S>& x, const Vec<S>& y) {
   float acc = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+B1_UNROLL_SLOTS
+  for (int s = 0; s < slots<S>(x); ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) acc = fmaf(x[s][a], y[s][a], acc);
   return wsum(acc);
@@ -207,20 +284,21 @@ __device__ __forceinline__ float vdot(const Vec<S>& x, const Vec<S>& y) {
 
 template <int S>
 __device__ __forceinline__ void copy(const Vec<S>& x, Vec<S>& y) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+B1_UNROLL_SLOTS
+  for (int s = 0; s < slots<S>(x); ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) y[s][a] = x[s][a];
 }
 
 // x_k <- sum_{j<k} x_j over the horizon (k = lane + 32 s), per axis: a
 // shift by one step, then a Kogge-Stone scan of 5 __shfl_up_sync levels;
-// with two steps a lane, slot 1 adds slot 0's total.
+// from two steps a lane on, each slot adds the one before's total.
 template <int S>
-__device__ __forceinline__ void prefix_excl(Vec<S>& x, int lane) {
-  Vec<S> y;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+__device__ __forceinline__ void prefix_excl(Vec<S>& x, int lane, Arena ar) {
+  const int n = slots<S>(x);
+  Vec<S> y = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const float up = __shfl_up_sync(kFull, x[s][a], 1);
@@ -229,15 +307,15 @@ __device__ __forceinline__ void prefix_excl(Vec<S>& x, int lane) {
     }
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1)
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float t = __shfl_up_sync(kFull, y[s][a], off);
         if (lane >= off) y[s][a] += t;
       }
-#pragma unroll
-  for (int s = 1; s < S; ++s)
+B1_UNROLL_SLOTS
+  for (int s = 1; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) y[s][a] += __shfl_sync(kFull, y[s - 1][a], 31);
   copy<S>(y, x);
@@ -246,28 +324,29 @@ __device__ __forceinline__ void prefix_excl(Vec<S>& x, int lane) {
 // x_k <- sum_{j>k} x_j over the horizon, per axis (the mirror of
 // prefix_excl, with __shfl_down_sync).
 template <int S>
-__device__ __forceinline__ void suffix_excl(Vec<S>& x, int lane) {
-  Vec<S> y;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+__device__ __forceinline__ void suffix_excl(Vec<S>& x, int lane, Arena ar) {
+  const int n = slots<S>(x);
+  Vec<S> y = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const float dn = __shfl_down_sync(kFull, x[s][a], 1);
       const float wrap =
-          s + 1 < S ? __shfl_sync(kFull, x[s + 1 < S ? s + 1 : s][a], 0) : 0.f;
+          s + 1 < n ? __shfl_sync(kFull, x[s + 1 < n ? s + 1 : s][a], 0) : 0.f;
       y[s][a] = lane == 31 ? wrap : dn;
     }
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1)
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float t = __shfl_down_sync(kFull, y[s][a], off);
         if (lane + off < 32) y[s][a] += t;
       }
-#pragma unroll
-  for (int s = S - 2; s >= 0; --s)
+B1_UNROLL_SLOTS
+  for (int s = n - 2; s >= 0; --s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) y[s][a] += __shfl_sync(kFull, y[s + 1][a], 0);
   copy<S>(y, x);
@@ -278,14 +357,14 @@ __device__ __forceinline__ void suffix_excl(Vec<S>& x, int lane) {
 // Lanes k >= N come out nonzero.
 template <int S>
 __device__ __forceinline__ void forward_maps(const Vec<S>& x, float cp, float cv, int lane,
-                                             Vec<S>& yp, Vec<S>& yv) {
-  Vec<S> e;
+                                             Vec<S>& yp, Vec<S>& yv, Arena ar) {
+  Vec<S> e = vec<S>(ar);
   copy<S>(x, e);
-  prefix_excl<S>(e, lane);
+  prefix_excl<S>(e, lane, ar);
   copy<S>(e, yp);
-  prefix_excl<S>(yp, lane);
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+  prefix_excl<S>(yp, lane, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < slots<S>(x); ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       yp[s][a] = cp * fmaf(0.5f, e[s][a], yp[s][a]);
@@ -297,20 +376,21 @@ __device__ __forceinline__ void forward_maps(const Vec<S>& x, float cp, float cv
 // zp and zv must be zero at k >= N; so is out.
 template <int S>
 __device__ __forceinline__ void pullback(const Vec<S>& zp, const Vec<S>& zv, float cp, float cv,
-                                         int lane, Vec<S>& out) {
-  Vec<S> r;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+                                         int lane, Vec<S>& out, Arena ar) {
+  const int n = slots<S>(zp);
+  Vec<S> r = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) r[s][a] = cp * zp[s][a];
-  suffix_excl<S>(r, lane);
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+  suffix_excl<S>(r, lane, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) out[s][a] = fmaf(cv, zv[s][a], r[s][a]);
-  suffix_excl<S>(out, lane);
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+  suffix_excl<S>(out, lane, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) out[s][a] = fmaf(0.5f, r[s][a], out[s][a]);
 }
@@ -318,24 +398,25 @@ __device__ __forceinline__ void pullback(const Vec<S>& zp, const Vec<S>& zv, flo
 // diag_j += sum_k (S_p/m)[k,j]^2 hp_k + (S_v/m)[k,j]^2 hv_k.
 template <int S>
 __device__ __forceinline__ void add_map_diagonal(const Vec<S>& hp, const Steps<S, 3>& hv, float cp,
-                                                 float cv, int lane, Vec<S>& diag) {
-  Vec<S> h, r1, r2;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+                                                 float cv, int lane, Vec<S>& diag, Arena ar) {
+  const int n = slots<S>(hp);
+  Vec<S> h = vec<S>(ar), r1 = vec<S>(ar), r2 = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) h[s][a] = (cp * cp) * hp[s][a];
   copy<S>(h, r1);
-  suffix_excl<S>(r1, lane);
+  suffix_excl<S>(r1, lane, ar);
   copy<S>(r1, r2);
-  suffix_excl<S>(r2, lane);
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+  suffix_excl<S>(r2, lane, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       r2[s][a] = fmaf(0.25f, h[s][a], fmaf(2.f, r1[s][a] + r2[s][a], (cv * cv) * hv[s][a]));
-  suffix_excl<S>(r2, lane);
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+  suffix_excl<S>(r2, lane, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) diag[s][a] += r2[s][a];
 }
@@ -362,18 +443,19 @@ __device__ __forceinline__ float accel(const MpcParams& P, float u, int a) {
 template <int S>
 __device__ __forceinline__ void rollout(const MpcParams& P, int lane, const Steps<S, 3>& c0,
                                         const float (&v0)[3], const Vec<S>& u, Vec<S>& pos,
-                                        Vec<S>& vel) {
-  Vec<S> acc;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+                                        Vec<S>& vel, Arena ar) {
+  const int n = slots<S>(u);
+  Vec<S> acc = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const bool valid = lane + 32 * s < P.N;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       acc[s][a] = valid ? accel<S>(P, u[s][a], a) : 0.f;
   }
-  forward_maps<S>(acc, P.dt * P.dt, P.dt, lane, pos, vel);
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+  forward_maps<S>(acc, P.dt * P.dt, P.dt, lane, pos, vel, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const bool valid = lane + 32 * s < P.N;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -400,8 +482,8 @@ __device__ __forceinline__ float cost(const MpcParams& P, Spheres sp, int lane, 
                                       const Vec<S>& u, const Vec<S>& pos, const Vec<S>& vel,
                                       const Steps<S, 3>& goal) {
   float D = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+B1_UNROLL_SLOTS
+  for (int s = 0; s < slots<S>(u); ++s) {
     const int k = lane + 32 * s;
     if (k >= P.N) continue;
     const float wp = step_weight(P, k);
@@ -459,30 +541,55 @@ struct Curv {
 };
 constexpr int kCurvFields = 6 + 3 + 4 + 5 + 3;
 
-// Shared floats a warp holds at S steps a lane: a round's Curv, then the
-// goal and c0 (none at S <= 2).
 template <int S>
-constexpr int kArenaFloats = S >= 3 ? 32 * S * (kCurvFields + 3 + 3) : 0;
+__device__ __forceinline__ Curv<S> take_curv(Arena& ar) {
+  return {take<S, 6>(ar), take<S, 3>(ar), take<S, 4>(ar), take<S, 5>(ar), take<S, 3>(ar)};
+}
 
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The arena's fields a step at S = kDyn, reckoned from the code: each
+// function's own Vec temporaries (3 fields each) plus its deepest callee's,
+// since the arena is a stack.
+constexpr int kScanFields = 3;                  // prefix_excl, suffix_excl: y
+constexpr int kMapFields = 3 + kScanFields;     // forward_maps: e; pullback: r
+constexpr int kDiagFields = 9 + kScanFields;    // add_map_diagonal: h, r1, r2
+constexpr int kRolloutFields = 3 + kMapFields;  // rollout: acc
+constexpr int kMatvecFields = 9 + kMapFields;   // matvec: dv, zp, zv
+// newton_round: a round's Curv, g and dg, then the largest of its blocks:
+// the rollout and gradient (pos, vel, gpos, gvel), the Jacobi diagonal
+// (minv, hpd), a CG step (minv, d, r, z0, p, ap) and a line-search
+// candidate (minv, d, r, z0, p, bu, cand, pc, vc)
+constexpr int kRoundFields =
+    kCurvFields + 6 +
+    cmax(cmax(12 + kRolloutFields, 6 + kDiagFields), cmax(18 + kMatvecFields, 27 + kRolloutFields));
+// the kernel: the goal, c0, diag(H) and the thrusts, then a Newton round or
+// the final rollout (pos, vel)
+constexpr int kDynFields = 3 + 3 + 1 + 3 + cmax(kRoundFields, 6 + kRolloutFields);
+static_assert(kDynFields == 73, "the header comment and PERF.md state 73 floats a step");
+
+// Floats of a warp's arena at S steps a lane (n = ceil(N / 32)): none at
+// one and two; at three and four a round's Curv, the goal and c0; from five
+// on kDynFields a step.
 template <int S>
-__device__ __forceinline__ Curv<S> take_curv(float*& arena, int lane) {
-  return {take<S, 6>(arena, lane), take<S, 3>(arena, lane), take<S, 4>(arena, lane),
-          take<S, 5>(arena, lane), take<S, 3>(arena, lane)};
+__host__ __device__ constexpr int arena_floats(int n) {
+  return S == kDyn ? 32 * n * kDynFields : (S >= 3 ? 32 * S * (kCurvFields + 3 + 3) : 0);
 }
 
 // out = free * (H + S_p^T h S_p + S_v^T hv S_v + tilt + thrust norm) (free * p)
 template <int S>
 __device__ __forceinline__ void matvec(const MpcParams& P, int lane, float cp, float cv,
                                        float wq, const Curv<S>& c, const Vec<S>& p,
-                                       Vec<S>& out) {
-  Vec<S> dv, zp, zv;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+                                       Vec<S>& out, Arena ar) {
+  const int n = slots<S>(p);
+  Vec<S> dv = vec<S>(ar), zp = vec<S>(ar), zv = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) dv[s][a] = p[s][a] * c.free[s][a];
-  forward_maps<S>(dv, cp, cv, lane, zp, zv);
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+  forward_maps<S>(dv, cp, cv, lane, zp, zv, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const int k = lane + 32 * s;
     const float w2p = 2.f * step_weight(P, k);
     const float w2v = k < P.N ? 2.f * P.w_v : 0.f;
@@ -494,9 +601,9 @@ __device__ __forceinline__ void matvec(const MpcParams& P, int lane, float cp, f
 #pragma unroll
     for (int a = 0; a < 3; ++a) zv[s][a] *= w2v + c.hv[s][a];
   }
-  pullback<S>(zp, zv, cp, cv, lane, out);
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+  pullback<S>(zp, zv, cp, cv, lane, out, ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const float dx = dv[s][0], dy = dv[s][1], dz = dv[s][2];
     out[s][0] = fmaf(wq, dx, out[s][0]);
     out[s][1] = fmaf(wq, dy, out[s][1]);
@@ -530,22 +637,23 @@ template <int S>
 __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int lane,
                                              float vmax, bool full, const Steps<S, 3>& c0,
                                              const float (&v0)[3], const Steps<S, 3>& goal,
-                                             const float (&dq)[S],
-                                             const float* __restrict__ alphas, float* arena,
+                                             const Steps<S, 1, S == kDyn>& dq,
+                                             const float* __restrict__ alphas, Arena ar,
                                              Vec<S>& u, float& min_imp, int cg_iters) {
-  const int N = P.N;
+  const int N = P.N, n = slots<S>(u);
   const float cv = P.dt * P.inv_m, cp = P.dt * cv;
   const float wq = 2.f * (P.w_a * P.inv_m * P.inv_m + P.w_T);
-  Curv<S> c = take_curv<S>(arena, lane);
-  Vec<S> g, dg;
+  Curv<S> c = take_curv<S>(ar);
+  Vec<S> g = vec<S>(ar), dg = vec<S>(ar);
   float cur;
   {
-    Vec<S> pos, vel, gpos, gvel;
-    rollout<S>(P, lane, c0, v0, u, pos, vel);
+    Arena blk = ar;
+    Vec<S> pos = vec<S>(blk), vel = vec<S>(blk), gpos = vec<S>(blk), gvel = vec<S>(blk);
+    rollout<S>(P, lane, c0, v0, u, pos, vel, blk);
 
     // physical-space gradient and curvature blocks
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s) {
       const int k = lane + 32 * s;
       const bool valid = k < N;
       const float wp = step_weight(P, k);
@@ -611,10 +719,10 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
     // the line search's reference: the current iterate's cost
     cur = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
     // pull back to thrust space
-    pullback<S>(gpos, gvel, cp, cv, lane, g);
+    pullback<S>(gpos, gvel, cp, cv, lane, g, blk);
   }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const int k = lane + 32 * s;
 #pragma unroll
     for (int a = 0; a < 4; ++a) c.tl[s][a] = 0.f;
@@ -682,8 +790,8 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
   }
 
   // active set: at a bound with the gradient pushing outward
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const bool valid = lane + 32 * s < N;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -695,33 +803,34 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
 
   // Jacobi preconditioner: diag(H) + diag(S_p^T h S_p + S_v^T hv S_v) + the
   // thrust-space blocks' diagonal
-  Vec<S> minv;
+  Vec<S> minv = vec<S>(ar);
   {
-    Vec<S> hpd;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+    Arena blk = ar;
+    Vec<S> hpd = vec<S>(blk);
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         hpd[s][a] = c.h[s][a];
-        dg[s][a] += dq[s];
+        dg[s][a] += dq[s][0];
       }
-    add_map_diagonal<S>(hpd, c.hv, cp, cv, lane, dg);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+    add_map_diagonal<S>(hpd, c.hv, cp, cv, lane, dg, blk);
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         // The absolute 1e-8 floor keeps idle lanes (dq == 0) at minv = 0
         // instead of 0 / 0 = NaN, which would poison every warp sum.
-        const float den = full ? fmaxf(fmaxf(dg[s][a], 0.1f * dq[s]), 1e-8f)
+        const float den = full ? fmaxf(fmaxf(dg[s][a], 0.1f * dq[s][0]), 1e-8f)
                                : fmaxf(dg[s][a], 1e-8f);
         minv[s][a] = c.free[s][a] / den;
       }
   }
 
   // Steihaug-truncated preconditioned CG on the free subspace
-  Vec<S> d, r, z0, p;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+  Vec<S> d = vec<S>(ar), r = vec<S>(ar), z0 = vec<S>(ar), p = vec<S>(ar);
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       r[s][a] = -(g[s][a] * c.free[s][a]);
@@ -731,8 +840,9 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
     }
   float rz = vdot<S>(r, z0);
   for (int it = 0; it < cg_iters; ++it) {
-    Vec<S> ap;
-    matvec<S>(P, lane, cp, cv, wq, c, p, ap);
+    Arena step = ar;
+    Vec<S> ap = vec<S>(step);
+    matvec<S>(P, lane, cp, cv, wq, c, p, ap, step);
     const float pap = vdot<S>(p, ap);
     const float pp = vdot<S>(p, p);
     // once a direction shows (near-)negative curvature the scenario's
@@ -740,9 +850,9 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
     // change nothing, so the warp leaves the loop
     if (!(pap > 1e-8f * pp)) break;
     const float alpha = rz / fmaxf(pap, 1e-12f);
-    Vec<S> z;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+    Vec<S> z = vec<S>(step);
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         d[s][a] += alpha * p[s][a];
@@ -751,8 +861,8 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
       }
     const float rz_new = vdot<S>(r, z);
     const float beta = rz_new / fmaxf(rz, 1e-12f);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) p[s][a] = z[s][a] + beta * p[s][a];
     rz = rz_new;
@@ -760,35 +870,37 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
   if (full) {
     // negative curvature on the first CG step leaves d = 0: fall back to
     // preconditioned steepest descent
-    Vec<S> dn;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
+    Arena blk = ar;
+    Vec<S> dn = vec<S>(blk);
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) dn[s][a] = fabsf(d[s][a]);
     if (!(vsum<S>(dn) > 0.f)) copy<S>(z0, d);
   }
-#pragma unroll
-  for (int s = 0; s < S; ++s)
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) d[s][a] *= c.free[s][a];
 
   // projected line search: keep the current iterate unless a candidate is
   // strictly better (earliest alpha on ties)
   float best = cur;
-  Vec<S> bu;
+  Vec<S> bu = vec<S>(ar);
   copy<S>(u, bu);
   for (int ia = 0; ia < P.n_alpha; ++ia) {
     const float alpha = alphas[ia];
-    Vec<S> cand, pc, vc;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
+    Arena cand_ar = ar;
+    Vec<S> cand = vec<S>(cand_ar), pc = vec<S>(cand_ar), vc = vec<S>(cand_ar);
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s) {
       const bool valid = lane + 32 * s < N;
 #pragma unroll
       for (int a = 0; a < 3; ++a)
         cand[s][a] =
             valid ? fminf(fmaxf(u[s][a] + alpha * d[s][a], P.lb[a]), P.ub[a]) : 0.f;
     }
-    rollout<S>(P, lane, c0, v0, cand, pc, vc);
+    rollout<S>(P, lane, c0, v0, cand, pc, vc, cand_ar);
     const float cj = cost<S>(P, sp, lane, vmax, cand, pc, vc, goal);
     if (cj < best) {
       best = cj;
@@ -808,12 +920,15 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
                      const float* __restrict__ obs_in, const float* __restrict__ mask_in,
                      const float* __restrict__ vcap, float* __restrict__ u_out,
                      float* __restrict__ pos_out, float* __restrict__ vel_out,
-                     float* __restrict__ imp_out, float* __restrict__ cost_out) {
-  constexpr int LD = 32 * S;
-  // [kWarps<S>][K][4]: each warp's live spheres; then, at S >= 3, each warp's
-  // arena of kArenaFloats<S>: the goal, c0 and a round's Curv
+                     float* __restrict__ imp_out, float* __restrict__ cost_out,
+                     float* __restrict__ scratch) {
+  // [kWarps<S>][K][4]: each warp's live spheres; then, from three steps a
+  // lane on, each warp's arena of arena_floats<S>(n), which at S = kDyn
+  // lies in `scratch` instead when the launch passes one
   extern __shared__ float smem[];
   const int N = P.N, K = P.K;
+  const int n = S == kDyn ? (N + 31) / 32 : S;  // slots a lane
+  const int LD = 32 * n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps<S> + warp;
   if (b >= P.B) return;  // each warp touches only its own shared memory
@@ -835,20 +950,24 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
   __syncwarp();
   const Spheres sp{live, P.use_obstacles ? n_live : 0};
 
+  float* arena = smem + kWarps<S> * 4 * K + warp * arena_floats<S>(n);
+  if constexpr (S == kDyn) {
+    if (scratch != nullptr) arena = scratch + (size_t)b * arena_floats<S>(n);
+  }
+  Arena ar{arena + lane, n, arena_floats<S>(n)};
   // constants: t (k dt) and diag(H), each LD long, zero past N; then the
   // n_alpha alphas
-  float* arena = smem + kWarps<S> * 4 * K + warp * kArenaFloats<S>;
-  Steps<S, 3> goal = take<S, 3>(arena, lane), c0 = take<S, 3>(arena, lane);
+  Steps<S, 3> goal = take<S, 3>(ar), c0 = take<S, 3>(ar);
+  Steps<S, 1, S == kDyn> dq = take<S, 1, S == kDyn>(ar);
+  Vec<S> u = vec<S>(ar);
   const float* alphas = consts + 2 * LD;
   const float vmax = vcap ? vcap[b] : P.v_max;
   const float vel0[3] = {v0[b * 3], v0[b * 3 + 1], v0[b * 3 + 2]};
-  float dq[S];
-  Vec<S> u;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const int k = lane + 32 * s;
     const bool valid = k < N;
-    dq[s] = consts[LD + k];
+    dq[s][0] = consts[LD + k];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const size_t at = ((size_t)b * N + k) * 3 + a;
@@ -860,20 +979,20 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
 
   float min_imp = INFINITY;
   for (int i = 0; i < P.n_gn; ++i)
-    newton_round<S>(P, sp, lane, vmax, false, c0, vel0, goal, dq, alphas, arena, u, min_imp,
+    newton_round<S>(P, sp, lane, vmax, false, c0, vel0, goal, dq, alphas, ar, u, min_imp,
                     P.cg_iters);
   if (P.n_full > 0) {
     min_imp = INFINITY;  // the stall tracker restarts with stage 2
     for (int i = 0; i < P.n_full; ++i)
-      newton_round<S>(P, sp, lane, vmax, true, c0, vel0, goal, dq, alphas, arena, u, min_imp,
+      newton_round<S>(P, sp, lane, vmax, true, c0, vel0, goal, dq, alphas, ar, u, min_imp,
                       P.cg_iters);
   }
 
-  Vec<S> pos, vel;
-  rollout<S>(P, lane, c0, vel0, u, pos, vel);
+  Vec<S> pos = vec<S>(ar), vel = vec<S>(ar);
+  rollout<S>(P, lane, c0, vel0, u, pos, vel, ar);
   const float J = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
+B1_UNROLL_SLOTS
+  for (int s = 0; s < n; ++s) {
     const int k = lane + 32 * s;
     if (k >= N) continue;
 #pragma unroll
@@ -890,13 +1009,31 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
   }
 }
 
+// Whether a launch's arena lies in global scratch: from five steps a lane
+// on, when the block's shared memory (the spheres and the warp's arena)
+// passes the card's opt-in maximum a block, read here.
+cudaError_t arena_in_scratch(const MpcParams& P, bool& spills) {
+  spills = false;
+  const int steps = (P.N + 31) / 32;
+  if (steps < kDyn) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  spills = sizeof(float) * (4 * (size_t)P.K + (size_t)arena_floats<kDyn>(steps)) > (size_t)optin;
+  return cudaSuccess;
+}
+
 template <int S>
 cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, const float* p0,
                    const float* v0, const float* goal, const float* obs, const float* mask,
                    const float* vcap, float* u_out, float* pos_out, float* vel_out,
-                   float* imp_out, float* cost_out, cudaStream_t stream) {
+                   float* imp_out, float* cost_out, float* scratch, cudaStream_t stream) {
+  const int n = S == kDyn ? (P.N + 31) / 32 : S;
   const size_t smem =
-      sizeof(float) * ((size_t)kWarps<S> * 4 * P.K + kWarps<S> * kArenaFloats<S>);
+      sizeof(float) * ((size_t)kWarps<S> * 4 * P.K +
+                       (scratch != nullptr ? 0 : (size_t)kWarps<S> * arena_floats<S>(n)));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         mpc_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -905,11 +1042,33 @@ cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, con
   const dim3 grid((P.B + kWarps<S> - 1) / kWarps<S>), block(kWarps<S> * 32);
   mpc_solve_kernel<S><<<grid, block, smem, stream>>>(P, consts, u0, p0, v0, goal, obs, mask,
                                                      vcap, u_out, pos_out, vel_out, imp_out,
-                                                     cost_out);
+                                                     cost_out, scratch);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// launch<kDyn>, five or more steps a lane, defined in mpc_solve_steps.cu.
+cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, const float* u0,
+                                      const float* p0, const float* v0, const float* goal,
+                                      const float* obs, const float* mask, const float* vcap,
+                                      float* u_out, float* pos_out, float* vel_out,
+                                      float* imp_out, float* cost_out, float* scratch,
+                                      cudaStream_t stream);
+
+#ifdef B1_RUN_TIME_STEPS
+
+cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, const float* u0,
+                                      const float* p0, const float* v0, const float* goal,
+                                      const float* obs, const float* mask, const float* vcap,
+                                      float* u_out, float* pos_out, float* vel_out,
+                                      float* imp_out, float* cost_out, float* scratch,
+                                      cudaStream_t stream) {
+  return launch<kDyn>(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out, vel_out,
+                      imp_out, cost_out, scratch, stream);
+}
+
+#else
 
 extern "C" int mpc_params_size() { return (int)sizeof(MpcParams); }
 
@@ -917,21 +1076,42 @@ extern "C" const char* mpc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches the solve on `stream` (does not synchronize). Returns the CUDA
-// error code of the launch, 0 on success.
+// Floats of global scratch that mpc_solve_launch needs for `params`: B
+// warps' arenas when they do not fit shared memory (from five steps a lane
+// on, see arena_in_scratch), else 0; minus the CUDA error code if the card
+// cannot be queried.
+extern "C" long long mpc_scratch_floats(const MpcParams* params) {
+  const MpcParams P = *params;
+  if (P.B <= 0 || P.N < 1 || P.K < 0) return 0;
+  bool spills = false;
+  const cudaError_t e = arena_in_scratch(P, spills);
+  if (e != cudaSuccess) return -(long long)e;
+  return spills ? (long long)P.B * arena_floats<kDyn>((P.N + 31) / 32) : 0;
+}
+
+// Launches the solve on `stream` (does not synchronize). `scratch` holds
+// mpc_scratch_floats(params) floats, or is null when that is 0. Returns the
+// CUDA error code of the launch, 0 on success.
 extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, const float* u0,
                                 const float* p0, const float* v0, const float* goal,
                                 const float* obs, const float* mask, const float* vcap,
                                 float* u_out, float* pos_out, float* vel_out, float* imp_out,
-                                float* cost_out, void* stream) {
+                                float* cost_out, float* scratch, void* stream) {
   const MpcParams P = *params;
   if (P.B <= 0) return 0;
-  if (P.N < 1 || P.N > 32 * kMaxSteps || P.K < 0 || P.n_alpha < 0)
-    return (int)cudaErrorInvalidValue;
+  if (P.N < 1 || P.K < 0 || P.n_alpha < 0) return (int)cudaErrorInvalidValue;
+  bool spills = false;
+  const cudaError_t e = arena_in_scratch(P, spills);
+  if (e != cudaSuccess) return (int)e;
+  if (spills != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // by the horizon steps a lane, ceil(N / 32)
-  constexpr decltype(&launch<1>) by_steps[kMaxSteps] = {launch<1>, launch<2>, launch<3>,
-                                                        launch<4>};
-  return (int)by_steps[(P.N + 31) / 32 - 1](P, consts, u0, p0, v0, goal, obs, mask, vcap,
-                                             u_out, pos_out, vel_out, imp_out, cost_out, st);
+  // by the horizon steps a lane, ceil(N / 32), all from five on in one
+  constexpr decltype(&launch<1>) by_steps[kDyn] = {launch<1>, launch<2>, launch<3>, launch<4>,
+                                                   mpc_launch_run_time_steps};
+  const int steps = (P.N + 31) / 32;
+  return (int)by_steps[(steps < kDyn ? steps : kDyn) - 1](P, consts, u0, p0, v0, goal, obs, mask,
+                                                           vcap, u_out, pos_out, vel_out, imp_out,
+                                                           cost_out, scratch, st);
 }
+
+#endif  // B1_RUN_TIME_STEPS

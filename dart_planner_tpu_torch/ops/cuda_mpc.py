@@ -33,11 +33,6 @@ REPLACES = "dart_planner_tpu/ops/pallas_mpc.py:806"
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
-# The kernel holds at most four horizon steps a lane (csrc/mpc_solve.cu),
-# which covers every horizon both packages' front doors accept
-# (prediction_horizon <= 100 in config/frozen_config.py).
-MAX_HORIZON = 128
-
 _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 
@@ -67,8 +62,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpc_params_size.argtypes = []
     lib.mpc_error_string.restype = ctypes.c_char_p
     lib.mpc_error_string.argtypes = [_c_int]
+    lib.mpc_scratch_floats.restype = ctypes.c_longlong
+    lib.mpc_scratch_floats.argtypes = [ctypes.POINTER(_Params)]
     lib.mpc_solve_launch.restype = _c_int
-    lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 14
+    lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 15
     return lib
 
 
@@ -193,8 +190,6 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     if u_init.dtype != torch.float32:
         raise TypeError(f"the CUDA solve takes float32, got {u_init.dtype}")
     N = config.prediction_horizon
-    if N > MAX_HORIZON:
-        raise ValueError(f"the CUDA solve takes N <= {MAX_HORIZON}, got {N}")
     if tuple(u_init.shape[-2:]) != (N, 3):
         raise ValueError(f"u_init must end in ({N}, 3), got {tuple(u_init.shape)}")
     # the tensors' card is made current for the launch: the runtime
@@ -210,10 +205,12 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     """One launch through ``library()``, a library with the C interface of
     ``csrc/mpc_solve.cu``, on ``stream``: the inputs flattened to contiguous
     float32 per-scenario copies, the outputs allocated beside them and
-    shaped as :func:`solve_thrusts_fused` returns them. Raises if the launch
-    fails; an empty batch launches nothing. A launch on a CUDA stream adds
-    one to ``LAUNCHES``; ``stream=None`` (a library built for the CPU) does
-    not."""
+    shaped as :func:`solve_thrusts_fused` returns them, and, where the
+    library asks for it (from five horizon steps a lane, when a warp's arena
+    does not fit the card's shared memory), a float32 scratch of its size.
+    Raises if the launch fails; an empty batch launches nothing. A launch on
+    a CUDA stream adds one to ``LAUNCHES``; ``stream=None`` (a library built
+    for the CPU) does not."""
     global LAUNCHES
     device = u_init.device
     N = config.prediction_horizon
@@ -245,13 +242,20 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
         lib = library()
         params = _params(config, B, K, use_obstacles)
         consts = _constants(config, str(device))
-        err = lib.mpc_solve_launch(
-            ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
-            p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
-            mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
-            u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
-            imp_out.data_ptr(), cost_out.data_ptr(), stream,
-        )
+        n_scratch = lib.mpc_scratch_floats(ctypes.byref(params))
+        if n_scratch < 0:
+            err = -n_scratch
+        else:
+            scratch = (torch.empty(n_scratch, dtype=torch.float32, device=device)
+                       if n_scratch else None)
+            err = lib.mpc_solve_launch(
+                ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
+                p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
+                mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
+                u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
+                imp_out.data_ptr(), cost_out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), stream,
+            )
         if err != 0:
             raise RuntimeError(
                 f"mpc_solve launch failed: CUDA error {err} "
