@@ -82,7 +82,12 @@ C.23); B1 past 128 steps, one instantiation for five or more steps a lane
 two-phase solve at N=160, B=4096 within twice the plain path's own spread,
 its ptxas lines and times; and the convergence diagnostic
 (``scripts/diag_convergence_torch.py``) at N = 20, 80 and 100 with its
-rows, its ship row at N=20 against phase 4's converged share (phase 19).
+rows, its ship row at N=20 against phase 4's converged share (phase 19);
+and the nine examples of ``examples_torch/``, each ``main()`` with no
+device at the JAX examples' sizes, their launches of both kernels counted
+around each call, batched_solves, monte_carlo_fleet and fleet_sharding
+held against their plain paths on the same inputs and the three-layer
+mission's first plans re-solved on the plain path (phase 20).
 Phases 7 and 10 time the kernels against their plain versions with CUDA
 events, and the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -2361,17 +2366,17 @@ def deployment_phase(dev, card: str) -> dict:
             "transport": transport}
 
 
-def record_first_solve(rec: list):
-    """``se3_mpc.solve`` patched to keep the first solve's (config, problem,
-    warm start, obstacles flag, positions) in ``rec``; returns the function
-    that undoes the patch."""
+def record_first_solve(rec: list, limit: int = 1):
+    """``se3_mpc.solve`` patched to keep the first ``limit`` solves' (config,
+    problem, warm start, obstacles flag, positions) in ``rec``; returns the
+    function that undoes the patch."""
     from dart_planner_tpu_torch.planning import se3_mpc
 
     solve = se3_mpc.solve
 
     def recording_solve(cfg, prob, u_init=None, use_obstacles=True, method="auto"):
         res = solve(cfg, prob, u_init, use_obstacles, method)
-        if not rec:
+        if len(rec) < limit:
             rec.append((cfg, prob, None if u_init is None else u_init.clone(), use_obstacles,
                         res.positions.clone()))
         return res
@@ -4022,6 +4027,230 @@ def convergence_phase(dev, card: str, conv_phase4: float) -> dict:
                      for N, rows in out.items()}}
 
 
+# phase 20: the examples (examples_torch/), each main() with no device at
+# the JAX examples' default sizes; the first three-layer plans are re-solved
+# on the plain path
+EXAMPLE_PARITY_PLANS = 10
+# phase 9's quality limits (success >= 0.97, crash <= 0.015) as margins: the
+# Monte-Carlo example's kernel path may be below its plain path by no more
+EXAMPLE_MC_SUCCESS_MARGIN = 1.0 - 0.97
+EXAMPLE_MC_CRASH_MARGIN = 0.015
+# the scheduler example's tasks (Hz) and the share of 2 s x rate each run
+# count may miss by
+EXAMPLE_TASK_RATES = {"control": 200.0, "planning": 25.0, "safety": 50.0}
+EXAMPLE_TASK_SLACK = 0.2
+
+
+def load_example(rel: str):
+    """``examples_torch/<rel>.py`` loaded by path, as a module."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "examples_torch" / f"{rel}.py"
+    spec = importlib.util.spec_from_file_location("examples_torch_" + rel.replace("/", "_"),
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Phase 20: the nine examples of ``examples_torch/`` on the card, each
+    ``main()`` called with no device (the card is its default) at the JAX
+    examples' sizes, what it prints dropped for one line here, the launch
+    counts of both
+    kernels set to 0 just before it and read just after. Launches: 2 of B1
+    a solve in batched_solves (its two solves), 2 a shard in
+    fleet_sharding, ``num_replans`` of each kernel in monte_carlo_fleet, 2
+    of B1 a plan in three_layer_mission and hardware_mission, none in the
+    other four. The kernel paths against the plain paths on the same
+    inputs: batched_solves at ``method="torch"`` to phase 4's limits
+    (converged >= 0.957, thrusts inside their bounds, finite) and 3c's mean
+    cost within 5%; monte_carlo_fleet at ``method="torch"`` (the same
+    seeded draws) to phase 9's quality limits as margins over the plain
+    path, and tracking RMSE below 0.1 m; fleet_sharding at ``method="torch"``
+    to phase 11's (converged within 0.002, mean cost within 1e-3); the first
+    EXAMPLE_PARITY_PLANS three-layer plans re-solved on the plain path,
+    positions within 14c's 1e-3 m. Both missions complete; the demos behave
+    as their CPU tests hold them. Returns both kernels' launches and B1's
+    per solve."""
+    import io
+
+    import torch
+
+    from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout
+    from dart_planner_tpu_torch.planning import se3_mpc
+
+    t_phase = time.perf_counter()
+    total = {"B1": 0, "B2": 0}
+
+    def call(rel, expected=(0, 0), **kw):
+        """``main(**kw)`` of the example: its result, launches and host
+        seconds. ``expected``: (B1, B2) launches, checked unless None."""
+        main = load_example(rel).main
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = main(**kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = (cuda_mpc.LAUNCHES, cuda_rollout.LAUNCHES)
+        check(expected is None or n == tuple(expected),
+              f"20 {rel}{kw or ''}: launches (B1, B2) {n}, not {expected}")
+        total["B1"] += n[0]
+        total["B2"] += n[1]
+        return out, n, seconds
+
+    def line(name, text, n, seconds):
+        print(f"[20 {name}] ({card}) {text}; launches B1 {n[0]}, B2 {n[1]}; {seconds:.1f} s "
+              "(host clock)", flush=True)
+
+    # batched_solves: 2048 scenarios, N=20, two-phase; its two solves
+    out, n, s = call("intermediate/batched_solves", (4, 0))
+    res = out["result"]
+    check(all(bool(torch.isfinite(x).all()) for x in res
+              if x is not None and x.dtype.is_floating_point), "20 batched_solves: non-finite")
+    lb, ub = se3_mpc.SE3MPCConfig().thrust_bounds(device=dev)
+    check(bool(((res.thrusts >= lb - 1e-5) & (res.thrusts <= ub + 1e-5)).all()),
+          "20 batched_solves: thrusts outside thrust_bounds")
+    plain, _, s_p = call("intermediate/batched_solves", method="torch")
+    mk, mp = out["mean_cost"], plain["mean_cost"]
+    for tag, o in (("kernel", out), ("plain", plain)):
+        check(o["converged"] >= 0.957,
+              f"20 batched_solves {tag}: converged {o['converged']:.4f} < 0.957")
+    check(mk <= 1.05 * mp and mp <= 1.05 * mk,
+          f"20 batched_solves: mean cost kernel {mk:.6g} vs plain {mp:.6g} beyond 5%")
+    line("batched_solves", f"B={out['batch']}, N=20, two-phase: the timed solve "
+         f"{out['ms']:.3f} ms by CUDA events ({out['solves_per_s']:.1f} solves/s), converged "
+         f"{out['converged']:.4f}, mean cost {mk:.6g}, worst terminal miss "
+         f"{out['worst_miss_m']:.3f} m; method='torch' on the same batch {plain['ms']:.3f} ms, "
+         f"converged {plain['converged']:.4f} (>= 0.957 both), mean cost {mp:.6g} (rel "
+         f"{abs(mk - mp) / mp:.3g}, <= 5%), {s_p:.1f} s", n, s)
+    per_batched_solve = n[0] / 2
+
+    # fleet_sharding: 64 scenarios a card, N=12, 8 rounds, the tail per shard
+    fleet = load_example("advanced/fleet_sharding")
+    n_dev = fleet.fleet_mesh().size
+    out, n, s = call("advanced/fleet_sharding", (2 * n_dev, 0))
+    plain, _, s_p = call("advanced/fleet_sharding", method="torch")
+    conv_k, conv_p = out["converged"] / out["total"], plain["converged"] / plain["total"]
+    rel = abs(out["mean_cost"] - plain["mean_cost"]) / plain["mean_cost"]
+    check(out["total"] == plain["total"] == 64 * n_dev, f"20 fleet_sharding: totals {out}")
+    check(abs(conv_k - conv_p) <= 0.002,
+          f"20 fleet_sharding: converged {conv_k:.4f} vs the plain path's {conv_p:.4f}")
+    check(rel <= 1e-3, f"20 fleet_sharding: mean cost vs the plain path's rel {rel:.3g} > 1e-3")
+    line("fleet_sharding", f"mesh {out['mesh']}, {out['total']:.0f} scenarios, shards "
+         f"{out['shard_shapes']}: converged {out['converged']:.0f}, mean cost "
+         f"{out['mean_cost']:.6g}; method='torch': converged {plain['converged']:.0f} (<= 0.002 "
+         f"apart), mean cost rel {rel:.3g} (<= 1e-3), {s_p:.1f} s", n, s)
+
+    # monte_carlo_fleet: 32 episodes, N=8, 60 replans of 40 ticks
+    replans = load_example("advanced/monte_carlo_fleet").loop_config().num_replans
+    out, n, s = call("advanced/monte_carlo_fleet", (replans, replans))
+    plain, _, s_p = call("advanced/monte_carlo_fleet", method="torch")
+    rk, rp = out["result"], plain["result"]
+    same = int(((rk.success == rp.success) & (rk.crashed == rp.crashed)).sum())
+    d_rmse = float((rk.tracking_rmse - rp.tracking_rmse).abs().max())
+    d_clear = float((rk.min_obstacle_clearance - rp.min_obstacle_clearance).abs().max())
+    check(out["success_rate"] >= plain["success_rate"] - EXAMPLE_MC_SUCCESS_MARGIN,
+          f"20 monte_carlo_fleet: success {out['success_rate']:.4f} vs the plain path's "
+          f"{plain['success_rate']:.4f}")
+    check(out["crash_rate"] <= plain["crash_rate"] + EXAMPLE_MC_CRASH_MARGIN,
+          f"20 monte_carlo_fleet: crash {out['crash_rate']:.4f} vs the plain path's "
+          f"{plain['crash_rate']:.4f}")
+    check(out["tracking_rmse_m"] < 0.1 and plain["tracking_rmse_m"] < 0.1,
+          f"20 monte_carlo_fleet: tracking RMSE {out['tracking_rmse_m']:.4f} / "
+          f"{plain['tracking_rmse_m']:.4f} m")
+    line("monte_carlo_fleet", f"{out['episodes']} episodes: success {out['success_rate']:.4f}, "
+         f"crash {out['crash_rate']:.4f}, tracking RMSE {out['tracking_rmse_m']:.4f} m, mean "
+         f"min clearance {out['mean_min_clearance_m']:.4f} m, final distance p50 "
+         f"{out['final_distance_p50_m']:.4f} m; method='torch' on the same draws: success "
+         f"{plain['success_rate']:.4f}, crash {plain['crash_rate']:.4f}, RMSE "
+         f"{plain['tracking_rmse_m']:.4f} m; {same} of {out['episodes']} episodes with the same "
+         f"outcome, max |RMSE diff| {d_rmse:.3g} m, max |clearance diff| {d_clear:.3g} m; "
+         f"{s_p:.1f} s", n, s)
+
+    # three_layer_mission: 40 replans at N=12, B=1, two-phase
+    rec = []
+    restore = record_first_solve(rec, EXAMPLE_PARITY_PLANS)
+    try:
+        out, n, s = call("advanced/three_layer_mission", (80, 0))
+    finally:
+        restore()
+    plans = out["stats"]["total_plans"]
+    check(plans == 40 and len(rec) == EXAMPLE_PARITY_PLANS,
+          f"20 three_layer_mission: {plans} plans, {len(rec)} recorded")
+    before = cuda_mpc.LAUNCHES
+    dpos = [float((pos - se3_mpc.solve(cfg, prob, u0, use_obs, method="torch").positions)
+                  .abs().max()) for cfg, prob, u0, use_obs, pos in rec]
+    check(cuda_mpc.LAUNCHES == before, "20 three_layer_mission: the plain path launched B1")
+    check(max(dpos) <= 1e-3, f"20 three_layer_mission: positions max |kernel - plain| "
+          f"{max(dpos):.3g} m > 1e-3")
+    p = out["positions"][-1]
+    line("three_layer_mission", f"{plans} plans (N=12, B=1), phases {out['phases']}, "
+         f"position after the last ({p[0]:.3f}, {p[1]:.3f}, {p[2]:.3f}), mean plan "
+         f"{out['stats']['mean_planning_time_ms']:.3f} ms (host clock), emergency plans "
+         f"{out['stats']['emergency_plans']}; the first {len(dpos)} plans vs method='torch': "
+         f"positions max |diff| {max(dpos):.3g} m (1e-3)", n, s)
+    per_three_layer_plan = n[0] / plans
+
+    # hardware_mission: 100 Hz control, 10 Hz planning, tolerance 0.8
+    mission = load_example("advanced/hardware_mission")
+    check(mission.CONTROL_HZ == 100.0 and mission.PLANNING_HZ == 10.0,
+          "20 hardware_mission: not at the JAX example's 100 Hz / 10 Hz")
+    out, n, s = call("advanced/hardware_mission", expected=None)
+    check(out["mission_complete"] and out["waypoints_reached"] == out["waypoints_total"] == 3
+          and out["failsafe_reason"] is None,
+          f"20 hardware_mission: complete {out['mission_complete']}, "
+          f"{out['waypoints_reached']}/{out['waypoints_total']}, failsafe "
+          f"{out['failsafe_reason']}")
+    check(out["plans"] > 0 and n == (2 * out["plans"], 0),
+          f"20 hardware_mission: launches (B1, B2) {n} for {out['plans']} plans, not 2 a plan")
+    line("hardware_mission", f"complete, 3/3 waypoints, {out['plans']} plans, avg plan "
+         f"{out['avg_planning_time_ms']:.3f} ms (host clock), {out['commands_sent']} control "
+         f"ticks in {out['wall_s']:.1f} s: control rate reached {out['control_hz']:.1f} Hz of "
+         f"{mission.CONTROL_HZ:g}, planning failures {out['planning_failures']}", n, s)
+
+    # minimal_takeoff: altitude 3.0, hover 2.0 s
+    out, n, s = call("beginner/minimal_takeoff")
+    check(out["peak_altitude"] > 2.0 and out["final_altitude"] < 1.5,
+          f"20 minimal_takeoff: peak {out['peak_altitude']:.3f}, landed "
+          f"{out['final_altitude']:.3f} m")
+    line("minimal_takeoff", f"peak {out['peak_altitude']:.3f} m, hover "
+         f"{out['hover_altitude']:.3f} m, landed {out['final_altitude']:.3f} m (target "
+         f"{out['target_altitude']:.1f})", n, s)
+
+    # state_buffer_demo: DroneStates on the card at 200 Hz
+    out, n, s = call("intermediate/state_buffer_demo")
+    st = out["stats"]
+    check(out["version"] == st["updates"] == st["current_version"] > 10
+          and abs(out["timestamp"] - out["past_timestamp"] - 0.05) < 1e-6,
+          f"20 state_buffer_demo: {out}")
+    line("state_buffer_demo", f"version {out['version']} at t={out['timestamp']:.3f}, 50 ms "
+         f"back t={out['past_timestamp']:.3f}", n, s)
+
+    # scheduler_demo: 200/25/50 Hz for 2 s
+    out, n, s = call("intermediate/scheduler_demo")
+    for name, rate in EXAMPLE_TASK_RATES.items():
+        runs = out["counters"][name]
+        check(abs(runs - 2.0 * rate) <= EXAMPLE_TASK_SLACK * 2.0 * rate,
+              f"20 scheduler_demo: {name} ran {runs} times in 2 s at {rate:g} Hz")
+    misses = {k: v["missed_deadlines"] for k, v in out["stats"].items()}
+    line("scheduler_demo", f"runs {out['counters']}, missed deadlines {misses}", n, s)
+
+    # heartbeat_demo: interval 100 ms, timeout 300 ms
+    out, n, s = call("beginner/heartbeat_demo")
+    check(out["emergency_triggered"] and out["fired_after_s"] <= 2.0,
+          f"20 heartbeat_demo: {out}")
+    line("heartbeat_demo", f"the emergency fired {out['fired_after_s']:.3f} s after the last "
+         "heartbeat", n, s)
+
+    print(f"[20 examples] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"launches B1 {total['B1']}, B2 {total['B2']}", flush=True)
+    return {"launches": total, "per_solve": {"batched_solve": per_batched_solve,
+                                             "three_layer_replan": per_three_layer_plan}}
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -4118,6 +4347,8 @@ def run(baseline_source=None) -> dict:
     past = past_128_phase(dev, card)
     # -- 19. the convergence diagnostic at N = 20, 80 and 100 ------------------
     conv = convergence_phase(dev, card, b1["converged"])
+    # -- 20. the examples (examples_torch/) on the card ------------------------
+    ex = examples_phase(dev, card)
 
     replans = mc_config().num_replans
     return {
@@ -4148,7 +4379,8 @@ def run(baseline_source=None) -> dict:
                                      "long_horizon": lh["launches"],
                                      "fork_cold_start": fork_launches,
                                      "past_128": past["launches"],
-                                     "convergence": conv["launches"]},
+                                     "convergence": conv["launches"],
+                                     "examples": ex["launches"]["B1"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
@@ -4157,7 +4389,11 @@ def run(baseline_source=None) -> dict:
                                        "di_planner_plan": di["per_plan"],
                                        "web_demo_replan": demo["per_plan"],
                                        "mavlink_replan": mav["per_plan"],
-                                       "secure_plan": secure["per_plan"]},
+                                       "secure_plan": secure["per_plan"],
+                                       "examples_batched_solve":
+                                           ex["per_solve"]["batched_solve"],
+                                       "examples_three_layer_replan":
+                                           ex["per_solve"]["three_layer_replan"]},
                 "mission_max_abs_err_m": dpos_mission,
                 "cloud_max_abs_err_m": deploy["parity_m"],
                 "onboard_max_abs_err_m": onboard["parity_m"],
@@ -4192,7 +4428,8 @@ def run(baseline_source=None) -> dict:
                 "launches": mc["launches"]["B2"],
                 "launches_by_path": {"closed_loop": mc["launches"]["B2"],
                                      "figure8": fig_launches["B2"],
-                                     "sweep": sweep["launches"]["B2"]},
+                                     "sweep": sweep["launches"]["B2"],
+                                     "examples": ex["launches"]["B2"]},
                 "launches_per_solve": {"closed_loop_replan": mc["launches"]["B2"] / replans},
                 "max_abs_err": max(err_b2, scen["err_b2"]),
                 "ms": t_b2["ms"],

@@ -1,5 +1,5 @@
-"""The port's default device, the first CUDA card, and host copies of
-tensors on any device.
+"""The port's default device, the first CUDA card, its label for a time
+measured on it, and host copies of tensors on any device.
 
 Entry points that make tensors (the facades, ``make_problem`` on non-tensor
 input, the fleet and world samplers, the type constructors) run on the card
@@ -8,6 +8,8 @@ never fall back to the CPU.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import numpy as np
 import torch
@@ -27,6 +29,20 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device, or :func:`default_device` for None."""
     return default_device() if device is None else torch.device(device)
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, to print
+    beside a time measured on ``device``; on the CPU, what such a time is."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu, host clock"
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(device.index or 0),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip() or "nvidia-smi gave nothing"
 
 
 def to_host(x, dtype=np.float64) -> np.ndarray:

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports with jax blocked, and no file
-of it imports jax or flax."""
+of it, of its smoke test or of its examples imports jax, flax or the JAX
+package."""
 
 import pathlib
 import re
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "dart_planner_tpu_torch"
-SOURCES = sorted(p for p in PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(p for p in PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples_torch").rglob("*.py")))
 
 
 def _module_names():
