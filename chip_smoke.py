@@ -87,7 +87,14 @@ and the nine examples of ``examples_torch/``, each ``main()`` with no
 device at the JAX examples' sizes, their launches of both kernels counted
 around each call, batched_solves, monte_carlo_fleet and fleet_sharding
 held against their plain paths on the same inputs and the three-layer
-mission's first plans re-solved on the plain path (phase 20).
+mission's first plans re-solved on the plain path (phase 20); and the
+eight diagnostics of ``scripts/*_torch.py`` at the JAX scripts' sizes
+through their row functions (phase 21): the weak-scaling table's NCCL
+row, the Newton decrement at N = 20 and 100, the tail, the stuck scenario
+and the fixes on the bench batch for the plain path and B1, and the
+timeout census, the goal-clamp sweep and the unknown-space cap sweep on
+one 2048-episode fleet and its draws through B1 and B2, the shipping row
+also on the plain path.
 Phases 7 and 10 time the kernels against their plain versions with CUDA
 events, and the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -3970,6 +3977,18 @@ CONVERGENCE_HORIZONS = (20, 80, 100)
 CONVERGENCE_SHIP_TOL = 0.002
 
 
+def load_script(name: str):
+    """``scripts/<name>.py`` loaded by path, as a module (the scripts import
+    one another by name: each puts its own directory on ``sys.path``)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def convergence_phase(dev, card: str, conv_phase4: float) -> dict:
     """Phase 19: ``scripts/diag_convergence_torch.py``'s functions on the
     card at each of CONVERGENCE_HORIZONS, B=4096: the ground truth (the
@@ -3978,19 +3997,13 @@ def convergence_phase(dev, card: str, conv_phase4: float) -> dict:
     with its time beside the card. Every cost finite, every share in [0, 1];
     B1's ship row at N=20 within CONVERGENCE_SHIP_TOL of phase 4's converged
     share. Returns B1's launches and the rows."""
-    import importlib.util
-
     import numpy as np
     import torch
 
     from dart_planner_tpu_torch.ops import cuda_mpc
 
     t_phase = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "diag_convergence_torch",
-        pathlib.Path(__file__).resolve().parent / "scripts" / "diag_convergence_torch.py")
-    diag = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(diag)
+    diag = load_script("diag_convergence_torch")
     label = diag.card_label(dev)
     launches, out = 0, {}
     for N in CONVERGENCE_HORIZONS:
@@ -4251,6 +4264,311 @@ def examples_phase(dev, card: str) -> dict:
                                              "three_layer_replan": per_three_layer_plan}}
 
 
+# phase 21: the port's diagnostics (scripts/*_torch.py, ROADMAP A.5) at the
+# JAX scripts' sizes: the bench batch (B=4096, N=20) and the Monte-Carlo
+# fleet (2048 episodes), built once for the three Monte-Carlo scripts
+DIAG_SCRIPTS = ("measure_scaling_torch", "diag_newton_decrement_torch", "diag_tail_torch",
+                "diag_stuck_torch", "diag_fixes_torch", "diag_timeouts_torch",
+                "diag_goalclamp_torch", "diag_unknown_torch")
+# the C.21 reading: the Newton decrement again at this horizon, not gated
+DIAG_LONG_HORIZON = 100
+# newton_decrement of B1's thrusts on the card against the CPU's, scenario by
+# scenario: relative, plus at least this absolute, or more where the scenario's
+# own float32 error is larger: how far the decrement moves when each element
+# of its projected gradient moves by DIAG_ND_PG_SPREAD times the CPU's float32
+# error in that element (read against float64)
+DIAG_ND_RTOL, DIAG_ND_ATOL, DIAG_ND_PG_SPREAD = 1e-4, 1e-9, 8.0
+
+
+def diagnostics_phase(dev, card: str, conv_phase4: float) -> dict:
+    """Phase 21: the eight diagnostics of ``scripts/`` that ROADMAP A.5
+    ported, through their row functions on the card, what each prints
+    passed through with a ``[21 <script>]`` prefix. The launch counts of
+    both kernels are set to 0 before each script and read after: a B1
+    solve row launches 2 (every solve row keeps the 8-round tail), a plain
+    row none, a fused Monte-Carlo row B1 and B2 once a replan, so each
+    Monte-Carlo script launches each kernel once for every replan of its
+    rows' configurations. The scaling table's NCCL row of one process at 4096
+    scenarios a card exits 0 with a finite rate (its worker is another
+    process: its launches are not counted here), and the row of two is
+    refused on one card. Every share in [0, 1], every cost and excess
+    finite; B1's ``base-12`` row of diag_fixes (the shipping solve on the
+    bench batch) within CONVERGENCE_SHIP_TOL of phase 4's converged share;
+    ``newton_decrement`` of B1's shipping thrusts on the card within
+    DIAG_ND_RTOL plus each scenario's own float32 slack (at least
+    DIAG_ND_ATOL) of the same function on the CPU; the
+    timeouts' shipping row fused to phase 9's limits, and within
+    EXAMPLE_MC_SUCCESS_MARGIN / EXAMPLE_MC_CRASH_MARGIN of the plain path
+    on the same fleet and draws. The Newton decrement at N=100 is printed,
+    not gated. Returns both kernels' launches."""
+    import io
+    import math
+
+    import numpy as np
+    import torch
+
+    from dart_planner_tpu_torch.common.device import to_host
+    from dart_planner_tpu_torch.ops import costs, cuda_mpc, cuda_rollout
+
+    t_phase = time.perf_counter()
+    mods = {name: load_script(name) for name in DIAG_SCRIPTS}
+    conv = load_script("diag_convergence_torch")
+    total = {"B1": 0, "B2": 0}
+
+    def zero():
+        torch.cuda.synchronize()
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+
+    def counted():
+        """The launches since the last zero or read, then zero again."""
+        torch.cuda.synchronize()
+        n = (cuda_mpc.LAUNCHES, cuda_rollout.LAUNCHES)
+        total["B1"] += n[0]
+        total["B2"] += n[1]
+        cuda_mpc.LAUNCHES = cuda_rollout.LAUNCHES = 0
+        return n
+
+    def passed(name, fn, *args, **kw):
+        """``fn`` with what it prints passed through, prefixed; its result,
+        launches (B1, B2) and host seconds."""
+        buf = io.StringIO()
+        zero()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = fn(*args, **kw)
+        finally:
+            for ln in buf.getvalue().splitlines():
+                print(f"[21 {name}] {ln}", flush=True)
+        seconds = time.perf_counter() - t0
+        return out, counted(), seconds
+
+    def share(tag, x):
+        check(0.0 <= x <= 1.0, f"21 {tag}: share {x} outside [0, 1]")
+
+    def finite(tag, *xs):
+        check(all(math.isfinite(x) for x in xs), f"21 {tag}: non-finite {xs}")
+
+    def summary(name, text, n, seconds):
+        print(f"[21 {name}] ({card}) {text}; launches B1 {n[0]}, B2 {n[1]}; {seconds:.1f} s "
+              "(host clock)", flush=True)
+
+    # -- measure_scaling: NCCL, one card a process; with one card the row of
+    # two processes is refused, never run
+    rows, _, s = passed("measure_scaling", mods["measure_scaling_torch"].main,
+                        ["--per-device", str(B_BENCH), "--max-procs", "2"])
+    check(len(rows) == min(2, torch.cuda.device_count()) and rows[0]["processes"] == 1
+          and rows[0]["global_batch"] == B_BENCH and math.isfinite(rows[0]["solves_per_s"])
+          and rows[0]["solves_per_s"] > 0, f"21 measure_scaling: rows {rows}")
+    print(f"[21 measure_scaling] ({card}) NCCL, 1 process, {B_BENCH} scenarios: "
+          f"{rows[0]['solves_per_s']:.1f} solves/s (host clock, the worker's own); "
+          f"{s:.1f} s (host clock)", flush=True)
+
+    # -- the solver-quality scripts on the bench batch, N=20 ------------------
+    nd_mod, tail_mod = mods["diag_newton_decrement_torch"], mods["diag_tail_torch"]
+    stuck_mod, fixes_mod = mods["diag_stuck_torch"], mods["diag_fixes_torch"]
+    config, prob = conv.make_batch(B_BENCH, device=dev)
+    (gt, gt_ms), n, _ = passed("diag_newton_decrement", nd_mod.ground_truth, config, prob)
+    check(n == (0, 0), f"21 ground truth: the plain path launched {n}")
+    gt_cost = to_host(gt.cost)
+    finite("ground truth", *gt_cost.tolist())
+    print(f"[21 ground truth] ({card}) 60 rounds of CG-25, the tail kept, plain path, "
+          f"B={B_BENCH}: {gt_ms:.3f} ms (CUDA events)", flush=True)
+
+    def nd_rows(cfg, pb, gt_c):
+        return list(nd_mod.rows(cfg, pb, gt_c, ("torch", "cuda")))
+
+    for N in (20, DIAG_LONG_HORIZON):
+        if N == 20:
+            cfg_n, prob_n, gt_n = config, prob, gt_cost
+        else:
+            cfg_n, prob_n = conv.make_batch(B_BENCH, horizon=N, device=dev)
+            gt_n = to_host(passed(f"diag_newton_decrement N={N}", nd_mod.ground_truth,
+                                  cfg_n, prob_n)[0][0].cost)
+        rows, n, s = passed(f"diag_newton_decrement N={N}", nd_rows, cfg_n, prob_n, gt_n)
+        for r in rows:
+            print(f"[21 diag_newton_decrement N={N}] {nd_mod.format_row(r, card)}", flush=True)
+            share(f"newton N={N}", r["conv"])
+            finite(f"newton N={N}", r["p95"], r["max"], r["ms"])
+        check(n == (2 * len(nd_mod.BUDGETS), 0),
+              f"21 newton N={N}: launches {n}, not 2 a B1 row")
+        pick = {(r["method"], r["newton"], r["tol"]): r for r in rows}
+        k, p = pick[("cuda", 12, 1e-5)], pick[("torch", 12, 1e-5)]
+        summary(f"diag_newton_decrement N={N}", f"12 rounds + tail, decrement < 1e-5: B1 "
+                f"{k['conv']:.4f} (excess p95 {k['p95']:.3g}, max {k['max']:.3g}), plain "
+                f"{p['conv']:.4f} ({p['p95']:.3g}, {p['max']:.3g})", n, s)
+
+    # the decrement of B1's shipping thrusts, on the card and on the CPU.
+    # Near its minimum a float32 gradient is mostly rounding, so each
+    # scenario's slack is how far its decrement moves when every element of
+    # its projected gradient moves by DIAG_ND_PG_SPREAD times the CPU's own
+    # float32 error in that element
+    zero()
+    res, _ = conv.run(config, prob, "cuda")
+    counted()
+    u = res.thrusts
+    nd_card = to_host(nd_mod.newton_decrement(config, prob, u)[0])
+    prob_cpu = costs.Problem(*(None if x is None else x.cpu() for x in prob))
+    prob_64 = costs.Problem(*(x if x is None or not x.dtype.is_floating_point else x.double()
+                              for x in prob_cpu))
+    nd_cpu = to_host(nd_mod.newton_decrement(config, prob_cpu, u.cpu())[0]).astype(np.float64)
+    pg, diag_h, cost = (to_host(t).astype(np.float64)
+                        for t in nd_mod.decrement_terms(config, prob_cpu, u.cpu()))
+    pg_exact = to_host(nd_mod.decrement_terms(config, prob_64, u.cpu().double())[0])
+    move = DIAG_ND_PG_SPREAD * np.abs(pg - pg_exact)
+    slack = (0.5 * ((2.0 * np.abs(pg) * move + move * move) / diag_h).sum((-1, -2))
+             / (1.0 + np.abs(cost)))
+    gap = np.abs(nd_card - nd_cpu)
+    tol = DIAG_ND_RTOL * np.abs(nd_cpu) + np.maximum(DIAG_ND_ATOL, slack)
+    worst = int(np.argmax(gap / tol))
+    check(bool((gap <= tol).all()),
+          f"21 newton_decrement card vs CPU: {int((gap > tol).sum())} scenarios beyond their "
+          f"tolerance, the worst #{worst} by {gap[worst]:.3g} (tolerance {tol[worst]:.3g})")
+    small = nd_cpu < 1e-6
+    check(bool(small.any()), "21 newton_decrement: no scenario's decrement below 1e-6")
+    print(f"[21 diag_newton_decrement] newton_decrement of B1's shipping thrusts, card vs "
+          f"CPU: max |diff| {gap.max():.3g}; the worst against its own tolerance #{worst}, "
+          f"{gap[worst]:.3g} of {tol[worst]:.3g} ({DIAG_ND_RTOL:g} relative + the larger of "
+          f"{DIAG_ND_ATOL:g} and its float32 slack); the slack where the decrement is below "
+          f"1e-6 ({int(small.sum())} scenarios): median {np.median(slack[small]):.3g}, "
+          f"p99 {np.percentile(slack[small], 99):.3g}, max {slack[small].max():.3g}",
+          flush=True)
+
+    def tail_rows():
+        out = []
+        for method in ("torch", "cuda"):
+            out.append(tail_mod.rows(config, prob, gt_cost, method))
+            tail_mod.report(out[-1], card)
+        return out
+
+    rows, n, s = passed("diag_tail", tail_rows)
+    for r in rows:
+        share("tail", r["tail"])
+        for x in (*r["bound_p50_p90"], r["inside_tail"], r["inside_converged"]):
+            check(math.isnan(x) or 0.0 <= x <= 1.0, f"21 tail: share {x}")
+        for g in r["grids"]:
+            share("tail grid", g["conv_ftol"])
+            share("tail grid", g["conv_nd"])
+            finite("tail grid", g["p95"], g["ms"])
+    check(n == (2 * (1 + len(tail_mod.ROUNDS) + 3), 0), f"21 tail: launches {n}")
+    k, p = rows[1], rows[0]
+    summary("diag_tail", f"tail at 12 rounds + tail: B1 {k['tail']:.4f}, plain {p['tail']:.4f};"
+            f" near-bound |pg|^2 p50/p90 B1 {k['bound_p50_p90'][0]:.3f}/"
+            f"{k['bound_p50_p90'][1]:.3f}; hinge-active tail/converged B1 "
+            f"{k['inside_tail']:.3f}/{k['inside_converged']:.3f}", n, s)
+
+    (gt0, _), n, _ = passed("diag_stuck", stuck_mod.ground_truth, config, prob)
+    check(n == (0, 0), f"21 stuck ground truth: launches {n}")
+    gt0_cost = to_host(gt0.cost)
+
+    def stuck_rows():
+        out = []
+        for method in ("torch", "cuda"):
+            out.append(stuck_mod.probe(config, prob, gt0_cost, method))
+            stuck_mod.report(out[-1], card)
+        return out
+
+    rows, n, s = passed("diag_stuck", stuck_rows)
+    check(n == (4, 0), f"21 stuck: launches {n}, not 2 + 2 of B1")
+    for r in rows:
+        finite("stuck", r["excess"], r["cost"], r["ratio"])
+        share("stuck", r["census"]["good"])
+    k, p = rows[1], rows[0]
+    summary("diag_stuck", f"worst scenario B1 #{k['scenario']} (excess {k['excess']:.4f}, "
+            f"converged {k['converged']}, rank {k['rank']}, "
+            f"{'in' if k['in_cohort'] else 'not in'} the cohort, jittered good "
+            f"{k['census']['good']:.3f}); plain #{p['scenario']} ({p['excess']:.4f}, "
+            f"{p['converged']}, rank {p['rank']}, good {p['census']['good']:.3f})", n, s)
+
+    def fixes_rows():
+        out = []
+        for r in fixes_mod.rows(config, prob, gt_cost, ("torch", "cuda")):
+            print(fixes_mod.format_row(r, card))
+            out.append(r)
+        return out
+
+    rows, n, s = passed("diag_fixes", fixes_rows)
+    check(n == (2 * len(fixes_mod.VARIANTS), 0), f"21 fixes: launches {n}")
+    for r in rows:
+        share("fixes", r["conv"])
+        finite("fixes", r["p95"], r["max"], r["ms"])
+    base12 = next(r for r in rows if r["method"] == "cuda" and r["variant"] == "base-12")
+    check(abs(base12["conv"] - conv_phase4) <= CONVERGENCE_SHIP_TOL,
+          f"21 fixes: B1's base-12 converged {base12['conv']:.4f}, not within "
+          f"{CONVERGENCE_SHIP_TOL} of phase 4's {conv_phase4:.4f}")
+    summary("diag_fixes", f"B1's base-12 converged {base12['conv']:.4f} (phase 4: "
+            f"{conv_phase4:.4f}), p95 excess {base12['p95']:.3g}", n, s)
+
+    # -- the Monte-Carlo scripts on one fleet and its draws -------------------
+    to_mod, gc_mod = mods["diag_timeouts_torch"], mods["diag_goalclamp_torch"]
+    un_mod = mods["diag_unknown_torch"]
+    t0 = time.perf_counter()
+    fleet = to_mod.build_fleet(B_MC, 0, dev)
+    torch.cuda.synchronize()
+    print(f"[21 fleet] ({card}) {B_MC} episodes, worlds perceived, wind and "
+          f"{fleet.noise.shape[0]} noise blocks drawn once: {time.perf_counter() - t0:.1f} s "
+          "(host clock)", flush=True)
+
+    def replans(configs):
+        """B1's and B2's launches of the fused rows ``configs``: one each a
+        replan."""
+        n = sum(cfg.num_replans for cfg in configs)
+        return (n, n)
+
+    base = to_mod.base_config()
+    out, n, s = passed("diag_timeouts", to_mod.rows, fleet, "auto", label=card)
+    want = replans(cfg for _, cfg, _ in to_mod.row_configs(base))
+    check(n == want, f"21 timeouts: launches {n}, not {want}")
+    for tag, r in out["rows"].items():
+        for key in ("success", "crash", "timeout"):
+            share("timeouts", r[key])
+        for name_, x in zip(r["result"]._fields, r["result"]):
+            if x.dtype.is_floating_point:
+                check(bool(torch.isfinite(x).all()), f"21 timeouts {tag}: non-finite {name_}")
+    ship = out["rows"]["6s shipping (cap 2.0)"]
+    check(ship["success"] >= 0.97 and ship["crash"] <= 0.015,
+          f"21 timeouts: the shipping row's success {ship['success']:.4f} (>= 0.97), "
+          f"crash {ship['crash']:.4f} (<= 0.015)")
+    (plain, plain_ms), n_p, s_p = passed("diag_timeouts plain", to_mod.fly, base, fleet,
+                                         "torch")
+    check(n_p == (0, 0), f"21 timeouts: the plain row launched {n_p}")
+    ps = float(plain.success.float().mean())
+    pc = float(plain.crashed.float().mean())
+    check(ship["success"] >= ps - EXAMPLE_MC_SUCCESS_MARGIN
+          and ship["crash"] <= pc + EXAMPLE_MC_CRASH_MARGIN,
+          f"21 timeouts: the fused shipping row (success {ship['success']:.4f}, crash "
+          f"{ship['crash']:.4f}) vs the plain path's ({ps:.4f}, {pc:.4f})")
+    summary("diag_timeouts", f"6 s shipping success {ship['success']:.4f}, crash "
+            f"{ship['crash']:.4f}, timeout {ship['timeout']:.4f} in {ship['ms']:.3f} ms "
+            f"(CUDA events); method='torch' on the same draws success {ps:.4f}, crash "
+            f"{pc:.4f} in {plain_ms:.3f} ms ({s_p:.1f} s)", n, s)
+
+    rows, n, s = passed("diag_goalclamp", gc_mod.rows, fleet, "auto", card)
+    want = replans(cfg for _, _, cfg in gc_mod.row_configs())
+    check(n == want, f"21 goalclamp: launches {n}, not {want}")
+    for r in rows:
+        for key in ("success", "crash", "timeout"):
+            share("goalclamp", r[key])
+        finite("goalclamp", r["ms"])
+    summary("diag_goalclamp", f"{len(rows)} (clamp, floor) rows", n, s)
+
+    base, caps = un_mod.base_config(), (0.0, 5.0, 4.0, 3.0)
+    out, n, s = passed("diag_unknown", un_mod.rows, fleet, caps, method="auto", base=base,
+                       label=card)
+    # the cap rows and the uncapped check, which flies ``base`` once more
+    want = replans([cfg for _, cfg, _ in un_mod.row_configs(base, caps)] + [base])
+    check(n == want, f"21 unknown: launches {n}, not {want}")
+    for r in out["rows"]:
+        share("unknown", r["success"])
+        share("unknown", r["crash"])
+        finite("unknown", r["rmse"], r["clearance"], r["final_p95"])
+    summary("diag_unknown", f"caps {[r['cap'] for r in out['rows']]} and the uncapped "
+            "check", n, s)
+    print(f"[21 diagnostics] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
+          f"launches B1 {total['B1']}, B2 {total['B2']}", flush=True)
+    return total
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -4349,6 +4667,8 @@ def run(baseline_source=None) -> dict:
     conv = convergence_phase(dev, card, b1["converged"])
     # -- 20. the examples (examples_torch/) on the card ------------------------
     ex = examples_phase(dev, card)
+    # -- 21. the diagnostics (scripts/*_torch.py) on the card -----------------
+    diag = diagnostics_phase(dev, card, b1["converged"])
 
     replans = mc_config().num_replans
     return {
@@ -4380,7 +4700,8 @@ def run(baseline_source=None) -> dict:
                                      "fork_cold_start": fork_launches,
                                      "past_128": past["launches"],
                                      "convergence": conv["launches"],
-                                     "examples": ex["launches"]["B1"]},
+                                     "examples": ex["launches"]["B1"],
+                                     "diagnostics": diag["B1"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
@@ -4429,7 +4750,8 @@ def run(baseline_source=None) -> dict:
                 "launches_by_path": {"closed_loop": mc["launches"]["B2"],
                                      "figure8": fig_launches["B2"],
                                      "sweep": sweep["launches"]["B2"],
-                                     "examples": ex["launches"]["B2"]},
+                                     "examples": ex["launches"]["B2"],
+                                     "diagnostics": diag["B2"]},
                 "launches_per_solve": {"closed_loop_replan": mc["launches"]["B2"] / replans},
                 "max_abs_err": max(err_b2, scen["err_b2"]),
                 "ms": t_b2["ms"],

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -33,6 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from dart_planner_tpu_torch.common.device import card_label, to_host  # noqa: E402
 from dart_planner_tpu_torch.planning import se3_mpc  # noqa: E402
 
 # the fixed uniform budgets (Newton rounds, CG iterations) of the JAX script
@@ -57,17 +57,41 @@ def make_batch(batch: int = 4096, seed: int = 0, horizon: int = 20, device="cuda
     return config, prob
 
 
-def card_label(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or what a
-    CPU timing is."""
-    if torch.device(device).type != "cuda":
-        return "cpu, host clock"
-    out = subprocess.run(
-        ["nvidia-smi", "-i", str(torch.device(device).index or 0),
-         "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip() or "nvidia-smi gave nothing"
+def timed(fn, device):
+    """``fn()`` and its time in ms: CUDA events around it on a card, the
+    host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def script_device(ap: argparse.ArgumentParser, name: str) -> torch.device:
+    """``--device`` of a diagnostic: a card (the default) or the CPU. Without
+    a card, ``ap.error`` (exit 2) names ``--device cpu``; nothing falls back
+    to the CPU unasked. TF32 is turned off: the plain paths' reference
+    arithmetic is exact float32."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device: pass --device cpu to run the plain path on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        ap.error(f"--device {name}: a card (cuda) or the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def methods_on(device) -> list:
+    """The solve paths of a row: the plain path (the JAX scripts' ``xla``)
+    and kernel B1 (``cuda``, their ``pallas``) on a card, the plain path
+    alone on the CPU."""
+    return ["torch", "cuda"] if torch.device(device).type == "cuda" else ["torch"]
 
 
 def run(config, prob, method: str, **overrides):
@@ -75,16 +99,7 @@ def run(config, prob, method: str, **overrides):
     around it on a card, the host clock on the CPU."""
     cfg = config._replace(**overrides)
     u0 = se3_mpc.initialize_thrusts(cfg, prob)
-    if prob.p0.device.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = se3_mpc.solve(cfg, prob, u0, method=method)
-        end.record()
-        end.synchronize()
-        return res, start.elapsed_time(end)
-    t0 = time.perf_counter()
-    res = se3_mpc.solve(cfg, prob, u0, method=method)
-    return res, 1e3 * (time.perf_counter() - t0)
+    return timed(lambda: se3_mpc.solve(cfg, prob, u0, method=method), prob.p0.device)
 
 
 def ground_truth(config, prob):
@@ -93,12 +108,18 @@ def ground_truth(config, prob):
     return run(config, prob, "torch", max_iterations=60, cg_iterations=25, tail_iterations=0)
 
 
+def excess_over(cost, gt_cost: np.ndarray) -> np.ndarray:
+    """The relative cost excess over the ground truth, in float64 on the
+    host: (cost - gt) / max(|gt|, 1e-9)."""
+    cost = to_host(cost)
+    return (cost - gt_cost) / np.maximum(np.abs(gt_cost), 1e-9)
+
+
 def excess_row(method: str, label: str, res, gt_cost: np.ndarray, ms: float) -> dict:
     """The JAX script's columns for one solve: its converged share, the p95
     and max of its cost excess over the ground truth, and the p95 of the
     converged cohort's excess (the honesty of the ftol gate)."""
-    cost = res.cost.double().cpu().numpy()
-    excess = (cost - gt_cost) / np.maximum(np.abs(gt_cost), 1e-9)
+    excess = excess_over(res.cost, gt_cost)
     conv = res.converged.cpu().numpy()
     return {"method": method, "budget": label, "conv": float(conv.mean()),
             "p95": float(np.percentile(excess, 95)), "max": float(excess.max()),
@@ -137,11 +158,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--quick", action="store_true",
                     help="skip the uniform-budget rows (ship rows only)")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        ap.error("no CUDA device: pass --device cpu to run the plain path on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        ap.error(f"--device {args.device}: a card (cuda) or the CPU")
+    device = script_device(ap, args.device)
     label = card_label(device)
 
     config, prob = make_batch(args.batch, horizon=args.horizon, device=device)
@@ -153,7 +170,7 @@ def main(argv=None) -> dict:
           f"median cost={np.median(gt_cost):.3f} in {ms:.3f} ms ({label})", flush=True)
     print(f"{COLUMNS[0]:8s} {COLUMNS[1]:>16s} {COLUMNS[2]:>7s} {COLUMNS[3]:>11s} "
           f"{COLUMNS[4]:>11s} {COLUMNS[5]:>15s} {'time':>13s}", flush=True)
-    methods = ["torch"] if args.torch_only or device.type != "cuda" else ["torch", "cuda"]
+    methods = ["torch"] if args.torch_only else methods_on(device)
     out = []
     for r in rows(config, prob, gt_cost, methods, args.quick):
         print(format_row(r, label), flush=True)

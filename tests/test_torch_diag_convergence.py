@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

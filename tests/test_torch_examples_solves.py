@@ -42,6 +42,7 @@ from dart_planner_tpu.perception import GeometricMapper as JMapper
 from dart_planner_tpu.planning import global_mission as JG
 from dart_planner_tpu.planning import se3_mpc as J
 from dart_planner_tpu_torch.planning import se3_mpc as T
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

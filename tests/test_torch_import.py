@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports with jax blocked, and no file
-of it, of its smoke test or of its examples imports jax, flax or the JAX
-package."""
+of it, of its smoke test, of its examples or of its scripts
+(``scripts/*_torch.py``, ``scripts/fork_lapack_hang.py``) imports jax,
+flax or the JAX package."""
 
 import pathlib
 import re
@@ -11,8 +12,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "dart_planner_tpu_torch"
+SCRIPTS = sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "scripts" / "fork_lapack_hang.py"]
 SOURCES = (sorted(p for p in PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-           + sorted((ROOT / "examples_torch").rglob("*.py")))
+           + sorted((ROOT / "examples_torch").rglob("*.py")) + SCRIPTS)
 
 
 def _module_names():
@@ -72,6 +74,20 @@ LAST_MODULES = (
         "file_verification", "db", "manage_users", "key_manager", "credentials",
         "credential_helpers", "os_keyring")),
 )
+
+
+# the port's counterparts of the JAX package's scripts
+PORTED_SCRIPTS = ("diag_convergence", "measure_scaling", "diag_newton_decrement", "diag_tail",
+                  "diag_stuck", "diag_fixes", "diag_timeouts", "diag_goalclamp",
+                  "diag_unknown")
+
+
+def test_the_ported_scripts_are_scanned():
+    """Each JAX script with a counterpart has it as ``<name>_torch.py``, and
+    the scan above covers it."""
+    for name in PORTED_SCRIPTS:
+        assert (ROOT / "scripts" / f"{name}.py").exists(), name
+        assert ROOT / "scripts" / f"{name}_torch.py" in SOURCES, name
 
 
 def test_the_last_modules_are_ported_and_scanned():

@@ -48,6 +48,7 @@ from dart_planner_tpu_torch import interop
 from dart_planner_tpu_torch.config import frozen_config as T_fc
 from dart_planner_tpu_torch.ops import _build, cuda_mpc, dynamics
 from dart_planner_tpu_torch.planning import se3_mpc as T
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _arrays(rng, batch, n_obs):

@@ -45,6 +45,7 @@ from dart_planner_tpu_torch.planning.global_mission import (
 )
 from dart_planner_tpu_torch.planning.se3_mpc import SE3MPCConfig, SE3MPCPlanner
 from dart_planner_tpu_torch.runtime.rt_executor import create_control_loop
+from _torch_one_thread import one_torch_thread  # noqa: F401
 
 GRAVITY = np.array([0.0, 0.0, -9.81])
 MASS = 1.5
