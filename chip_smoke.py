@@ -94,7 +94,12 @@ row, the Newton decrement at N = 20 and 100, the tail, the stuck scenario
 and the fixes on the bench batch for the plain path and B1, and the
 timeout census, the goal-clamp sweep and the unknown-space cap sweep on
 one 2048-episode fleet and its draws through B1 and B2, the shipping row
-also on the plain path.
+also on the plain path; and the port's benchmark (phase 22),
+``python -m dart_planner_tpu_torch.apps.cli bench``, which runs
+``bench_torch.py``'s five sections at bench.py's sizes in a process of its
+own, its record checked: every section present, no error, the latency
+gate passed on the native 400 Hz loop, the Monte-Carlo within phase 9's
+limits, each section's launches of both kernels as reckoned from the code.
 Phases 7 and 10 time the kernels against their plain versions with CUDA
 events, and the Monte-Carlo's episodes/s on the host clock; phase 10 also reads the SM
 clock under load and prints kernel B2's latency floor beside its bound (the
@@ -4569,6 +4574,84 @@ def diagnostics_phase(dev, card: str, conv_phase4: float) -> dict:
     return total
 
 
+BENCH_TIMEOUT_S = 600.0
+# the launches of (B1, B2) in each section of bench_torch.py, reckoned from
+# the code: a two-phase solve launches B1 twice (phase 1 and the tail), a
+# phase-1 solve once, a fast-path replan is one two-phase solve at B=1, and a
+# Monte-Carlo run launches each kernel once a replan (60 replans)
+BENCH_LAUNCHES = {
+    "launches_per_solve": {"B1": 2.0, "B2": 0.0},
+    "phase1_launches_per_solve": {"B1": 1.0, "B2": 0.0},
+    "single_launches_per_solve": {"B1": 2.0, "B2": 0.0},
+    "fastpath_launches_per_replan": {"B1": 2.0, "B2": 0.0},
+    "fleet_launches_per_solve": {"B1": 2.0, "B2": 0.0},
+    "mc_launches_per_run": {"B1": 60.0, "B2": 60.0},
+}
+# and over the whole run, each section's warm-ups included: throughput (1 +
+# 3 x 30) x (2 + 1), single (1 + 3 x 100) x 2, fast path (1 + 150) x 2,
+# fleet (1 + 2 x 6) x 2, Monte-Carlo (1 + 3) x 60 of each kernel
+BENCH_TOTAL = {"B1": 91 * 3 + 301 * 2 + 151 * 2 + 13 * 2 + 4 * 60, "B2": 4 * 60}
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 22: the port's benchmark as a user runs it, ``python -m
+    dart_planner_tpu_torch.apps.cli bench``, in a process of its own at its
+    full sizes (bench.py's five sections: 4096 scenarios two-phase and phase
+    1, B=1, the fast path into the native 400 Hz loop, the fleet of 131,072,
+    the 2048-episode Monte-Carlo). Its last JSON line must carry all five
+    sections, no ``section_errors``, ``truncated`` false, the latency gate
+    passed on ``RealTimeControlLoop``, the Monte-Carlo within phase 9's
+    limits, every section's launches of both kernels as BENCH_LAUNCHES and
+    the whole run's as BENCH_TOTAL, finite positive rates, and this card's
+    label; the process exits 0. Returns the run's launches of B1 and B2."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dart_planner_tpu_torch.apps.cli", "bench"],
+            cwd=pathlib.Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"22 bench: no end in {BENCH_TIMEOUT_S} s") from e
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(bool(lines), f"22 bench: rc {proc.returncode}, no record; {proc.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    print(f"[22 bench] record {lines[-1]}", flush=True)
+    check(proc.returncode == 0, f"22 bench: rc {proc.returncode}; {proc.stderr[-2000:]}")
+    check(rec["sections"] == ["throughput", "single", "fastpath", "fleet", "mc"],
+          f"22 bench: sections {rec['sections']}")
+    check("section_errors" not in rec and rec["truncated"] is False,
+          f"22 bench: errors {rec.get('section_errors')}, truncated {rec['truncated']}")
+    check(rec["latency_gate_ok"] is True and rec["rt_loop"] == "RealTimeControlLoop",
+          f"22 bench: latency gate {rec['latency_gate_ok']} on {rec['rt_loop']}")
+    check(rec["mc_success_rate"] >= 0.97 and rec["mc_crash_rate"] <= 0.015
+          and rec["tracking_rmse_m"] < 0.1,
+          f"22 bench: Monte-Carlo success {rec['mc_success_rate']}, crash "
+          f"{rec['mc_crash_rate']}, RMSE {rec['tracking_rmse_m']} m")
+    for key, want in BENCH_LAUNCHES.items():
+        check(rec[key] == want, f"22 bench: {key} {rec[key]}, not {want}")
+    check(rec["launches"] == BENCH_TOTAL,
+          f"22 bench: launches {rec['launches']}, not {BENCH_TOTAL}")
+    for key in ("value", "phase1_solves_per_s", "fleet_131072_solves_per_s",
+                "closed_loop_episodes_per_s", "single_solve_device_ms",
+                "planner_to_actuator_p95_ms"):
+        check(math.isfinite(rec[key]) and rec[key] > 0, f"22 bench: {key} {rec[key]}")
+    check(rec["card"] == card and rec["device"] == "cuda",
+          f"22 bench: card {rec['card']!r} on {rec['device']}")
+    print(f"[22 bench] ({card}) two-phase {rec['value']} solves/s at 4096 "
+          f"({rec['batch_step_ms']} ms a solve), phase 1 {rec['phase1_solves_per_s']}; "
+          f"B=1 {rec['single_solve_device_ms']} ms; fleet of 131,072 "
+          f"{rec['fleet_131072_solves_per_s']} solves/s (CUDA events); fast path p95 "
+          f"planning {rec['planning_host_p95_ms']} ms, tick {rec['control_tick_p95_ms']} "
+          f"ms, planner-to-actuator {rec['planner_to_actuator_p95_ms']} ms (host clock, "
+          f"{rec['rt_loop']}); Monte-Carlo {rec['closed_loop_episodes_per_s']} episodes/s, "
+          f"success {rec['mc_success_rate']}, crash {rec['mc_crash_rate']}, RMSE "
+          f"{rec['tracking_rmse_m']} m; launches B1 {rec['launches']['B1']}, B2 "
+          f"{rec['launches']['B2']}; the bench's own {rec['elapsed_s']} s, "
+          f"{seconds:.1f} s with its process (host clock)", flush=True)
+    return rec["launches"]
+
+
 def run(baseline_source=None) -> dict:
     import torch
 
@@ -4669,6 +4752,8 @@ def run(baseline_source=None) -> dict:
     ex = examples_phase(dev, card)
     # -- 21. the diagnostics (scripts/*_torch.py) on the card -----------------
     diag = diagnostics_phase(dev, card, b1["converged"])
+    # -- 22. the port's benchmark (bench_torch.py) through the CLI -------------
+    bench = bench_phase(card)
 
     replans = mc_config().num_replans
     return {
@@ -4701,7 +4786,8 @@ def run(baseline_source=None) -> dict:
                                      "past_128": past["launches"],
                                      "convergence": conv["launches"],
                                      "examples": ex["launches"]["B1"],
-                                     "diagnostics": diag["B1"]},
+                                     "diagnostics": diag["B1"],
+                                     "bench": bench["B1"]},
                 "launches_per_solve": {"two_phase_solve": b1["launches"],
                                        "closed_loop_replan": mc["launches"]["B1"] / replans,
                                        "mission_replan": mission["per_plan"],
@@ -4751,7 +4837,8 @@ def run(baseline_source=None) -> dict:
                                      "figure8": fig_launches["B2"],
                                      "sweep": sweep["launches"]["B2"],
                                      "examples": ex["launches"]["B2"],
-                                     "diagnostics": diag["B2"]},
+                                     "diagnostics": diag["B2"],
+                                     "bench": bench["B2"]},
                 "launches_per_solve": {"closed_loop_replan": mc["launches"]["B2"] / replans},
                 "max_abs_err": max(err_b2, scen["err_b2"]),
                 "ms": t_b2["ms"],

@@ -4,14 +4,16 @@
     python -m dart_planner_tpu_torch.apps.cli run --mode=cloud [--port 5555]
     python -m dart_planner_tpu_torch.apps.cli run --mode=edge|sim
     python -m dart_planner_tpu_torch.apps.cli demo [--port 8080]
+    python -m dart_planner_tpu_torch.apps.cli bench [--seed 0] [--budget-s 480]
 
 Port of the reference ``dart_planner_cli.py`` (:10-43): ``run
 --mode=cloud|edge`` dispatch after loading + validating the port's frozen
 config, extended with ``sim`` (minimal takeoff) and ``demo`` (the
-websocket web demo). Every app runs on ``--device`` (default: the first
+websocket web demo), and ``bench``, which runs the port's benchmark, the
+root ``bench_torch.py`` (as the JAX CLI's ``bench`` runs ``bench.py``), and
+exits with its code. Every app runs on ``--device`` (default: the first
 CUDA card; without one the CLI raises before anything starts, and never
-falls back to the CPU). The JAX CLI's ``bench`` runs the JAX package's
-benchmark; the port has no benchmark yet, so it has no ``bench``.
+falls back to the CPU).
 """
 
 from __future__ import annotations
@@ -45,7 +47,11 @@ def main(argv=None) -> int:
     demo_p = sub.add_parser("demo", help="run the websocket web demo")
     demo_p.add_argument("--port", type=int, default=8080)
     demo_p.add_argument("--duration", type=float, default=None)
-    for p in (run_p, demo_p):
+
+    bench_p = sub.add_parser("bench", help="run the port's benchmark (bench_torch.py)")
+    bench_p.add_argument("--seed", type=int, default=0)
+    bench_p.add_argument("--budget-s", type=float, default=480.0)
+    for p in (run_p, demo_p, bench_p):
         p.add_argument(
             "--device",
             default=None,
@@ -93,6 +99,18 @@ def main(argv=None) -> int:
                 from dart_planner_tpu_torch.apps import minimal_takeoff
 
                 minimal_takeoff.main(device=device)
+        elif args.command == "bench":
+            import pathlib
+            import runpy
+
+            bench = pathlib.Path(__file__).resolve().parents[2] / "bench_torch.py"
+            saved_argv = sys.argv
+            sys.argv = [str(bench), "--device", str(device), "--seed", str(args.seed),
+                        "--budget-s", str(args.budget_s)]
+            try:
+                runpy.run_path(str(bench), run_name="__main__")  # raises SystemExit
+            finally:
+                sys.argv = saved_argv
         else:
             from dart_planner_tpu_torch.apps import web_demo
 

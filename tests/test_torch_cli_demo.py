@@ -3,8 +3,9 @@ demo (``apps/web_demo.py``), against the JAX package's.
 
 - tests/test_apps.py's ``test_cli_parses`` and
   ``test_cli_serves_metrics_endpoint`` run against the port's CLI with
-  ``--device cpu``; ``run --mode=sim --device cpu`` flies the minimal
-  takeoff; without ``--device`` the CLI raises on a machine with no card.
+  ``--device cpu``; ``bench`` dispatches to the root ``bench_torch.py``;
+  ``run --mode=sim --device cpu`` flies the minimal takeoff; without
+  ``--device`` the CLI raises on a machine with no card.
 - The 4 cases of tests/test_web_demo_e2e.py run against the port's
   ``web_demo.main`` on the CPU (the REST server, the websocket stream, the
   metrics endpoint). The flight builds its planner from a small config with
@@ -23,6 +24,7 @@ Every socket is on a port the OS assigns.
 
 import asyncio
 import json
+import pathlib
 import socket
 import threading
 import time
@@ -38,6 +40,7 @@ from dart_planner_tpu_torch.apps import cli, web_demo
 from dart_planner_tpu_torch.common import metrics as metrics_mod
 from dart_planner_tpu_torch.planning import se3_mpc as T
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = T.SE3MPCConfig(max_iterations=4, gn_warmup_iterations=2, tail_iterations=0)
 
 
@@ -48,13 +51,24 @@ def _free_port() -> int:
 
 
 # ---- the CLI (tests/test_apps.py) ----
-def test_cli_parses():
+def test_cli_parses(monkeypatch):
+    import runpy
+    import sys
+
     with pytest.raises(SystemExit):
         cli.main([])  # no command
     with pytest.raises(SystemExit):
         cli.main(["run"])  # missing --mode
-    with pytest.raises(SystemExit):
-        cli.main(["bench"])  # the port has no benchmark yet
+    # bench runs the root bench_torch.py as __main__ with its own arguments
+    calls = []
+    monkeypatch.setattr(runpy, "run_path",
+                        lambda path, run_name: calls.append((path, run_name, list(sys.argv))))
+    argv = list(sys.argv)
+    assert cli.main(["bench", "--device", "cpu", "--seed", "3", "--budget-s", "90"]) == 0
+    bench = str(ROOT / "bench_torch.py")
+    assert calls == [(bench, "__main__",
+                      [bench, "--device", "cpu", "--seed", "3", "--budget-s", "90.0"])]
+    assert sys.argv == argv
 
 
 def test_cli_serves_metrics_endpoint(monkeypatch):

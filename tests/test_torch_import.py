@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports with jax blocked, and no file
-of it, of its smoke test, of its examples or of its scripts
-(``scripts/*_torch.py``, ``scripts/fork_lapack_hang.py``) imports jax,
-flax or the JAX package."""
+of it, of its smoke test, of its benchmark (``bench_torch.py``), of its
+examples or of its scripts (``scripts/*_torch.py``,
+``scripts/fork_lapack_hang.py``) imports jax, flax or the JAX package."""
 
 import pathlib
 import re
@@ -13,7 +13,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "dart_planner_tpu_torch"
 SCRIPTS = sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "scripts" / "fork_lapack_hang.py"]
-SOURCES = (sorted(p for p in PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(p for p in PKG.rglob("*.py"))
+           + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
            + sorted((ROOT / "examples_torch").rglob("*.py")) + SCRIPTS)
 
 
@@ -88,6 +89,15 @@ def test_the_ported_scripts_are_scanned():
     for name in PORTED_SCRIPTS:
         assert (ROOT / "scripts" / f"{name}.py").exists(), name
         assert ROOT / "scripts" / f"{name}_torch.py" in SOURCES, name
+
+
+def test_the_bench_is_ported_and_scanned():
+    """bench.py has its counterpart, the root ``bench_torch.py``, and the scan
+    above covers it; so does it the CLI that runs it."""
+    assert (ROOT / "bench.py").exists()
+    assert ROOT / "bench_torch.py" in SOURCES
+    assert PKG / "apps" / "cli.py" in SOURCES
+    assert "bench_torch.py" in (PKG / "apps" / "cli.py").read_text()
 
 
 def test_the_last_modules_are_ported_and_scanned():
