@@ -1,10 +1,13 @@
-// The few CUDA features csrc/mpc_solve.cu uses, emulated on the CPU for
-// tests/test_torch_long_horizon.py, which compiles the kernel with g++:
-// one warp at a time, each of its 32 lanes a thread; shuffles and
-// ballots pass through a buffer between two barrier waits, so
-// every lane sees the values all lanes held at the call, as on the card.
-// Blocks and warps run one after another (the kernel shares nothing across
-// warps), so one buffer and one barrier serve every warp.
+// The few CUDA features csrc/mpc_solve.cu and csrc/tick_block.cu use,
+// emulated on the CPU for tests/test_torch_long_horizon.py and
+// tests/test_torch_tick_scope.py, which compile the kernels with g++.
+// mpc_solve.cu (emu_launch): one warp at a time, each of its 32 lanes a
+// thread; shuffles and ballots pass through a buffer between two barrier
+// waits, so every lane sees the values all lanes held at the call, as on the
+// card. Blocks and warps run one after another (the kernel shares nothing
+// across warps), so one buffer and one barrier serve every warp.
+// tick_block.cu (emu_launch_block): one block at a time, all its threads at
+// once, __syncthreads a barrier of the block (the kernel uses no shuffle).
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -81,6 +84,22 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+extern std::barrier<>* emu_block;
+inline void __syncthreads() { emu_block->arrive_and_wait(); }
+// IEEE operations the compiler may not contract into an FMA: the volatile
+// store rounds each result, as the card's _rn intrinsics do
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline float __fsub_rn(float a, float b) {
+  volatile float r = a - b;
+  return r;
+}
 inline void __syncwarp() { emu_warp->arrive_and_wait(); }
 inline void __trap() { std::abort(); }
 
@@ -98,4 +117,23 @@ void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args
         });
       for (auto& t : lanes) t.join();
     }
+}
+
+// kernel<<<grid, block, shared, stream>>>(args...) for a kernel whose warps
+// share memory and meet at __syncthreads: one block at a time, each of its
+// threads a thread of the CPU
+template <class K, class... A>
+void emu_launch_block(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args) {
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
+    std::barrier<> sync(block.x);
+    emu_block = &sync;
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t)
+      threads.emplace_back([=] {
+        threadIdx = {t, 0, 0};
+        blockIdx = {bx, 0, 0};
+        kernel(args...);
+      });
+    for (auto& th : threads) th.join();
+  }
 }

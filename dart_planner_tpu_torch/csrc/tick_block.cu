@@ -9,6 +9,12 @@
 //     limit, the desired frame at yaw 0 with the yaw-singular and
 //     straight-up fallbacks, e_R, torque with the gyroscopic term and
 //     per-axis saturation, and the failsafe counter and latch;
+//   - and the two arms of the JAX controller (dart_planner_tpu/control/
+//     geometric.py) that the Pallas kernel does not take, each a
+//     compile-time arm, so that a configuration pays only for its own:
+//     back-calculation anti-windup (:231-252; the feedback of the last
+//     tick's raw thrust and torque, carried in state rows 26-29) and the
+//     "reference" yaw convention (:137-143, b1 = e1 x b3);
 //   - the rigid-body plant over `substeps` substeps: body-z thrust, wind,
 //     linear drag, Euler's equations, and a Rodrigues update of R (with the
 //     JAX kernel's small-angle branch, written the same way);
@@ -66,8 +72,9 @@
 // memory is 4 * 32 * (3 T + 3 kWarps) bytes: the positions after each tick
 // and each warp's partial minima. Above 48 KB the launcher raises the
 // kernel's limit, and returns the error when the card cannot give it. The
-// wrapper repeats the count (cuda_rollout.py::shared_bytes) so that the
-// closed loop can refuse a T before any launch.
+// wrapper repeats the count (cuda_rollout.py::shared_bytes) and splits a
+// block of more ticks than the card's shared memory holds (601 on an H100)
+// into consecutive launches, the state chained through the output rows.
 //
 // Precision: exact IEEE fp32 throughout (no fast math, precise division,
 // square root and sincosf); reduced-precision rotation chains broke the
@@ -93,6 +100,7 @@ constexpr int kDefaultSharedBytes = 48 * 1024;
 // field. Scalars are computed on the host in float64 and rounded to float32.
 struct TickParams {
   int B, T, substeps, K, use_drag;
+  int back_calc, ref_yaw;  // the anti-windup and yaw arms (0: clamping, Lee)
   float kp[3], ki[3], kd[3], kp_att[3], kd_att[3];
   float inertia[3];       // the controller's model of the inertia
   float max_tq[3];        // controller torque caps
@@ -106,6 +114,7 @@ struct TickParams {
   float max_integral_pos, decay, yaw_sing, track_thr, vel_thr, fs_trigger;
   float p_mass, pg, p_max_thrust, p_max_torque, drag;  // the plant's
   float control_dt, h;                                   // h = control_dt / substeps
+  float kb;                                              // back_calculation_gain
 };
 
 namespace {
@@ -127,8 +136,10 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
 // The chain of one episode (lane `lane` of warp 0): T ticks of controller and
 // plant on the state in registers. Stores pos after tick t at
 // pos_s[(3 t + d) * kEpisodes + lane] and writes the state rows if b < B.
-// kOneSubstep: P.substeps is 1, known at compile time.
-template <bool kOneSubstep>
+// kOneSubstep: P.substeps is 1, known at compile time. kBackCalc: the
+// back-calculation anti-windup (else clamping). kRefYaw: the "reference"
+// yaw convention (else Lee's).
+template <bool kOneSubstep, bool kBackCalc, bool kRefYaw>
 __device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, int lane,
                                           const float* __restrict__ S,
                                           const float* __restrict__ spp,
@@ -150,6 +161,11 @@ __device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, in
     for (int j = 0; j < 3; ++j) R[i][j] = S[(9 + 3 * i + j) * B + bl];
   float fcount = S[24 * B + bl];
   float last_valid = S[25 * B + bl];
+  float u_thrust = 0.f, u_torque[3] = {0.f, 0.f, 0.f};  // the last tick's raw values
+  if (kBackCalc) {
+    u_thrust = S[26 * B + bl];
+    for (int d = 0; d < 3; ++d) u_torque[d] = S[(27 + d) * B + bl];
+  }
 
   float sp_p[3], sp_v[3], sp_a[3];
   for (int d = 0; d < 3; ++d) {
@@ -185,13 +201,33 @@ __device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, in
     const float thrust_mag = clip(thrust_raw, P.min_thrust, P.max_thrust);
     const float thrust_sat = thrust_raw != thrust_mag ? 1.f : 0.f;
 
-    // integral update, clamping anti-windup (saturated axes at 10%)
-    const float damp_t = 1.f - 0.9f * thrust_sat;
+    // integral update
     float ni[3];
-    for (int d = 0; d < 3; ++d) {
-      const float damp = damp_t * (1.f - 0.9f * lt_sat[d]);
-      const float v = integral[d] + ve[d] * P.control_dt * damp;
-      ni[d] = clip(v, -P.per_axis_int[d], P.per_axis_int[d]);
+    if (kBackCalc) {
+      // back-calculation: the last tick's raw thrust and torque beyond their
+      // caps feed back, in the JAX controller's order, rounded op by op
+      // (__fmul_rn / __fsub_rn / __fadd_rn are not contracted into FMAs), as
+      // the plain version rounds them: a near-tie at the caps then parts the
+      // two no more often than the clamping arm's
+      const float thrust_fb = thrust_sat != 0.f ? __fmul_rn(u_thrust - P.max_thrust, P.kb) : 0.f;
+      const float split[3] = {0.33f, 0.33f, 0.34f};
+      for (int d = 0; d < 3; ++d) {
+        const float torque_fb =
+            lt_sat[d] != 0.f ? __fmul_rn(u_torque[d] - P.max_tq[d], P.kb) : 0.f;
+        float upd = __fmul_rn(ve[d], P.control_dt);
+        upd = __fsub_rn(upd, __fmul_rn(thrust_fb, split[d]));
+        upd = __fsub_rn(upd, __fmul_rn(torque_fb, 0.5f));
+        ni[d] = clip(__fadd_rn(integral[d], upd), -P.per_axis_int[d], P.per_axis_int[d]);
+      }
+      u_thrust = thrust_raw;
+    } else {
+      // clamping: saturated axes accumulate at 10%
+      const float damp_t = 1.f - 0.9f * thrust_sat;
+      for (int d = 0; d < 3; ++d) {
+        const float damp = damp_t * (1.f - 0.9f * lt_sat[d]);
+        const float v = integral[d] + ve[d] * P.control_dt * damp;
+        ni[d] = clip(v, -P.per_axis_int[d], P.per_axis_int[d]);
+      }
     }
     const float mag = sqrtf(dot3(ni, ni));
     const float scale = mag > P.max_integral_pos ? P.max_integral_pos / fmaxf(mag, 1e-9f) : 1.f;
@@ -215,11 +251,17 @@ __device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, in
       b3[2] = P.cos_max;
     }
 
-    // desired frame at yaw 0 (c = e1)
+    // desired frame at yaw 0 (c = e1): Lee's b1 = (b3 x c) x b3, or the
+    // reference's c x b3
     const float e1[3] = {1.f, 0.f, 0.f};
-    float bc[3], b1n[3], b1s[3], b1[3], b2[3];
-    cross3(b3, e1, bc);
-    cross3(bc, b3, b1n);
+    float b1n[3], b1s[3], b1[3], b2[3];
+    if (kRefYaw) {
+      cross3(e1, b3, b1n);
+    } else {
+      float bc[3];
+      cross3(b3, e1, bc);
+      cross3(bc, b3, b1n);
+    }
     const float n1 = sqrtf(dot3(b1n, b1n));
     const float inv_n1 = 1.f / n1;  // unused where n1 is 0
     for (int d = 0; d < 3; ++d) b1n[d] = n1 > 1e-6f ? b1n[d] * inv_n1 : e1[d];
@@ -249,6 +291,7 @@ __device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, in
       const float raw = -P.kp_att[d] * eR[d] - P.kd_att[d] * omega[d] + cor[d];
       tq[d] = clip(raw, -P.max_tq[d], P.max_tq[d]);
       lt_sat[d] = raw != tq[d] ? 1.f : 0.f;
+      if (kBackCalc) u_torque[d] = raw;  // the raw torque, latch or not
     }
 
     // failsafe accounting
@@ -333,10 +376,14 @@ __device__ __forceinline__ void run_chain(const TickParams& P, int b, int bl, in
       for (int j = 0; j < 3; ++j) out[(9 + 3 * i + j) * B + b] = R[i][j];
     out[24 * B + b] = fcount;
     out[25 * B + b] = last_valid;
+    if (kBackCalc) {
+      out[26 * B + b] = u_thrust;
+      for (int d = 0; d < 3; ++d) out[(27 + d) * B + b] = u_torque[d];
+    }
   }
 }
 
-template <bool kOneSubstep>
+template <bool kOneSubstep, bool kBackCalc, bool kRefYaw>
 __global__ void __launch_bounds__(kThreads)
     tick_block_kernel(const TickParams P, const float* __restrict__ S,
                       const float* __restrict__ spp, const float* __restrict__ spv,
@@ -354,10 +401,13 @@ __global__ void __launch_bounds__(kThreads)
   const int bl = live ? b : B - 1;  // the ragged edge computes on a real episode
 
   if (warp == 0) {
-    run_chain<kOneSubstep>(P, b, bl, lane, S, spp, spv, spa, gw, pos_s, out);
+    run_chain<kOneSubstep, kBackCalc, kRefYaw>(P, b, bl, lane, S, spp, spv, spa, gw, pos_s,
+                                               out);
   } else if (live) {
-    // the zero rows, written while the chain runs
-    for (int r = 26 + (warp - 1); r < 32; r += kHelperWarps) out[r * B + b] = 0.f;
+    // the zero rows, written while the chain runs (back-calculation's chain
+    // writes rows 26-29 itself)
+    for (int r = (kBackCalc ? 30 : 26) + (warp - 1); r < 32; r += kHelperWarps)
+      out[r * B + b] = 0.f;
     for (int r = 4 + (warp - 1); r < 8; r += kHelperWarps) acc_out[r * B + b] = 0.f;
   }
   float goal[3];  // the helpers' loads land while the chain runs
@@ -410,6 +460,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+using TickKernel = void (*)(const TickParams, const float*, const float*, const float*,
+                           const float*, const float*, const float*, float*, float*);
+
+// The instantiation of a launch: [one substep][back-calculation][reference yaw].
+const TickKernel kTickKernels[2][2][2] = {
+    {{tick_block_kernel<false, false, false>, tick_block_kernel<false, false, true>},
+     {tick_block_kernel<false, true, false>, tick_block_kernel<false, true, true>}},
+    {{tick_block_kernel<true, false, false>, tick_block_kernel<true, false, true>},
+     {tick_block_kernel<true, true, false>, tick_block_kernel<true, true, true>}},
+};
+
 }  // namespace
 
 extern "C" int tick_params_size() { return (int)sizeof(TickParams); }
@@ -428,7 +489,7 @@ extern "C" int tick_block_launch(const TickParams* params, const float* S, const
   if (P.T < 1 || P.substeps < 1 || P.K < 0 || (P.K > 0 && obs == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kEpisodes * (3 * (size_t)P.T + 3 * kWarps);
-  const auto kernel = P.substeps == 1 ? tick_block_kernel<true> : tick_block_kernel<false>;
+  const TickKernel kernel = kTickKernels[P.substeps == 1][P.back_calc != 0][P.ref_yaw != 0];
   if (smem > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

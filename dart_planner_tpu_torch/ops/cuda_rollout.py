@@ -11,17 +11,27 @@ it run :func:`run_tick_block_plain`, the same tick loop in PyTorch over the
 same rows. ``LAUNCHES`` counts the kernel's launches.
 
 The kernel keeps each tick's positions in shared memory for its metrics
-pass, so T is bounded by the shared memory a block may take on the card
-(:func:`max_ticks`); above it the wrapper raises before any launch. The
-launch's parameter struct and the setpoints' interpolation weights on the
-device are built once per configuration and shape, and then reused.
+pass, so one launch takes at most :func:`max_ticks` ticks (601 on an
+H100). A block of more ticks runs as consecutive launches of at most that
+many (:func:`tick_chunks`), the state rows chained from one to the next,
+each launch on its slice of the setpoint rows; the metrics combine as one
+launch's would (minima by minimum, the tracking sum by sum, launch by
+launch). The plain version chunks the same way, on the CPU as an H100
+would. The launch's parameter struct and the setpoints' interpolation
+weights on the device are built once per configuration and shape, and
+then reused.
 
-Scope (as in the JAX package): clamping anti-windup, setpoint yaw and yaw
-rate 0, one batch axis.
+Scope: every controller configuration of the JAX package's closed loop:
+clamping or back-calculation anti-windup, the ``"lee"`` or ``"reference"``
+yaw convention (setpoint yaw and yaw rate 0, as the simulator commands),
+any number of physics substeps and ticks; one batch axis (the closed loop
+flattens others).
 
 State rows (one (32, B) tensor):
   0-2 pos | 3-5 vel | 6-8 omega | 9-17 R row-major | 18-20 integral |
-  21-23 last_torque_saturated | 24 failsafe_count | 25 last_valid_thrust
+  21-23 last_torque_saturated | 24 failsafe_count | 25 last_valid_thrust |
+  26 unsaturated_thrust, 27-29 unsaturated_torque (back-calculation only;
+  zero under clamping, as the JAX package packs them) | 30-31 zero
 Accumulator rows (8, B): 0 min goal distance | 1 summed squared tracking
 error | 2 min altitude | 3 min sphere surface clearance (1e30 without
 spheres) | 4-7 zero.
@@ -50,24 +60,23 @@ WARPS_PER_BLOCK = 4  # the chain warp and three helpers for the metrics pass
 DEFAULT_SHARED_BYTES = 48 * 1024  # what a block may take without opting in
 
 _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_INTS = ("B", "T", "substeps", "K", "use_drag", "back_calc", "ref_yaw")
 _VEC3 = ("kp", "ki", "kd", "kp_att", "kd_att", "inertia", "max_tq",
          "per_axis_int", "near_int", "p_inertia")
+_FLOATS = ("mass", "g", "min_thrust", "max_thrust", "cos_max", "sin_max",
+           "max_integral_pos", "decay", "yaw_sing", "track_thr", "vel_thr",
+           "fs_trigger", "p_mass", "pg", "p_max_thrust", "p_max_torque",
+           "drag", "control_dt", "h", "kb")
+BACK_CALC_SPLIT = (0.33, 0.33, 0.34)  # thrust feedback's share per axis (JAX)
+H100_SHARED_LIMIT = 232448  # the shared memory an H100 gives a block on opt-in
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``struct TickParams`` in ``csrc/tick_block.cu``."""
 
-    _fields_ = [
-        (name, _c_int) for name in ("B", "T", "substeps", "K", "use_drag")
-    ] + [(name, _c_float * 3) for name in _VEC3] + [
-        (name, _c_float)
-        for name in (
-            "mass", "g", "min_thrust", "max_thrust", "cos_max", "sin_max",
-            "max_integral_pos", "decay", "yaw_sing", "track_thr", "vel_thr",
-            "fs_trigger", "p_mass", "pg", "p_max_thrust", "p_max_torque",
-            "drag", "control_dt", "h",
-        )
-    ]
+    _fields_ = ([(name, _c_int) for name in _INTS]
+                + [(name, _c_float * 3) for name in _VEC3]
+                + [(name, _c_float) for name in _FLOATS])
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -96,9 +105,9 @@ def _library() -> ctypes.CDLL:
 def shared_bytes(T: int) -> int:
     """Dynamic shared memory of one block of the kernel at ``T`` ticks: the
     position after each tick and each warp's three partial minima, for
-    ``EPISODES_PER_BLOCK`` episodes. ``tick_block_launch`` sizes the launch
-    itself; this count lets a caller refuse a T before any launch, and the
-    ``cuda`` tests launch at :func:`max_ticks` and expect one more to raise."""
+    ``EPISODES_PER_BLOCK`` episodes. ``tick_block_launch`` sizes each
+    launch itself, by its own T; this count lets the wrapper split a block
+    before any launch (:func:`tick_chunks`)."""
     return 4 * EPISODES_PER_BLOCK * (3 * T + 3 * WARPS_PER_BLOCK)
 
 
@@ -109,15 +118,39 @@ def max_ticks(limit_bytes: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def shared_limit(device: torch.device) -> int:
-    """Shared memory a block may opt in to on ``device``, in bytes."""
+    """Shared memory a block may opt in to on ``device``, in bytes; for a
+    device that is not a card, an H100's, so that the plain version on the
+    CPU chunks a block as the kernel does on an H100."""
+    if device.type != "cuda":
+        return H100_SHARED_LIMIT
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def ticks_fit(T: int, device: torch.device) -> bool:
     """Whether a block of ``T`` ticks fits the shared memory ``device`` gives
-    one; the card is asked only above the 48 KB that every card gives."""
+    one launch; the card is asked only above the 48 KB that every card gives."""
     need = shared_bytes(T)
     return need <= DEFAULT_SHARED_BYTES or need <= shared_limit(device)
+
+
+def tick_chunks(T: int, device: torch.device) -> tuple[int, ...]:
+    """The ticks of each launch that a block of ``T`` ticks takes on
+    ``device``: ``(T,)`` when it fits one launch, else as many launches of
+    :func:`max_ticks` as fit and one of the rest. The launches a replan
+    takes are ``ceil(T / max_ticks)``."""
+    if ticks_fit(T, device):
+        return (T,)
+    m = max_ticks(shared_limit(device))
+    return (m,) * (T // m) + ((T % m,) if T % m else ())
+
+
+def combine_metrics(acc: torch.Tensor, more: torch.Tensor) -> torch.Tensor:
+    """The accumulator rows of two consecutive launches as one launch's:
+    the minima by minimum, the tracking sum by sum, rows 4-7 zero."""
+    return torch.stack([
+        torch.minimum(acc[0], more[0]), acc[1] + more[1],
+        torch.minimum(acc[2], more[2]), torch.minimum(acc[3], more[3]), *acc[4:],
+    ])
 
 
 def _scalars(control_cfg, physics_cfg, control_dt: float, substeps: int) -> dict:
@@ -125,8 +158,6 @@ def _scalars(control_cfg, physics_cfg, control_dt: float, substeps: int) -> dict
     float64 as the JAX kernel computes them (the kernel and the plain
     version both round them to float32)."""
     c, p = control_cfg, physics_cfg
-    if c.anti_windup_method != "clamping":
-        raise ValueError("the tick block takes anti_windup_method='clamping' only")
     per_axis = tuple(float(v) for v in c.max_integral_per_axis)
     return dict(
         kp=tuple(float(v) for v in c.kp_pos),
@@ -158,16 +189,27 @@ def _scalars(control_cfg, physics_cfg, control_dt: float, substeps: int) -> dict
         drag=float(p.drag_coefficient),
         control_dt=float(control_dt),
         h=float(control_dt) / substeps,
+        kb=float(c.back_calculation_gain),
+        # the JAX controller's arms: anything but "clamping" back-calculates,
+        # anything but "reference" is Lee's frame
+        back_calc=back_calculation(c),
+        ref_yaw=c.yaw_convention == "reference",
     )
 
 
+def back_calculation(control_cfg) -> bool:
+    """Whether ``control_cfg`` takes the back-calculation anti-windup arm
+    (the JAX controller's test: every method but "clamping")."""
+    return control_cfg.anti_windup_method != "clamping"
+
+
 def _params(s: dict, B: int, T: int, substeps: int, K: int) -> _Params:
-    P = _Params(B=B, T=T, substeps=substeps, K=K, use_drag=int(s["drag"] > 0))
-    for name, _ in _Params._fields_[5:]:
-        if name in _VEC3:
-            getattr(P, name)[:] = s[name]
-        else:
-            setattr(P, name, s[name])
+    P = _Params(B=B, T=T, substeps=substeps, K=K, use_drag=int(s["drag"] > 0),
+                back_calc=int(s["back_calc"]), ref_yaw=int(s["ref_yaw"]))
+    for name in _VEC3:
+        getattr(P, name)[:] = s[name]
+    for name in _FLOATS:
+        setattr(P, name, s[name])
     return P
 
 
@@ -201,29 +243,34 @@ def _lerp_tensor(T: int, control_dt: float, mpc_dt: float, N: int, dtype: torch.
                            device=device)
 
 
-def pack_state(rb, ctrl) -> torch.Tensor:
-    """RigidBodyState + ControllerState (leading batch (B,)) -> (32, B)."""
+def pack_state(rb, ctrl, back_calc: bool = False) -> torch.Tensor:
+    """RigidBodyState + ControllerState (leading batch (B,)) -> (32, B).
+    ``back_calc`` (the configuration's arm, :func:`back_calculation`) packs
+    the unsaturated thrust and torque into rows 26-29; without it those rows
+    are zero, as the JAX package packs them."""
     B = rb.position.shape[0]
     dtype = rb.position.dtype
-    S = torch.cat(
-        [
-            rb.position.T,
-            rb.velocity.T,
-            rb.angular_velocity.T,
-            rb.rotation.reshape(B, 9).T,
-            ctrl.integral_vel_error.T,
-            ctrl.last_torque_saturated.to(dtype).T,
-            ctrl.failsafe_count.to(dtype)[None, :],
-            ctrl.last_valid_thrust[None, :],
-        ],
-        dim=0,
-    )
+    rows = [
+        rb.position.T,
+        rb.velocity.T,
+        rb.angular_velocity.T,
+        rb.rotation.reshape(B, 9).T,
+        ctrl.integral_vel_error.T,
+        ctrl.last_torque_saturated.to(dtype).T,
+        ctrl.failsafe_count.to(dtype)[None, :],
+        ctrl.last_valid_thrust[None, :],
+    ]
+    if back_calc:
+        rows += [ctrl.unsaturated_thrust[None, :], ctrl.unsaturated_torque.T]
+    S = torch.cat(rows, dim=0)
     pad = torch.zeros((ROWS - S.shape[0], B), dtype=dtype, device=S.device)
     return torch.cat([S, pad], dim=0)
 
 
-def unpack_state(S: torch.Tensor, rb_template, ctrl_template):
-    """(32, B) -> (RigidBodyState, ControllerState) matching the templates."""
+def unpack_state(S: torch.Tensor, rb_template, ctrl_template, back_calc: bool = False):
+    """(32, B) -> (RigidBodyState, ControllerState) matching the templates;
+    ``back_calc`` as :func:`pack_state`'s (the unsaturated thrust and torque
+    come from rows 26-29, else from the template)."""
     B = S.shape[1]
     rb = rb_template.replace(
         position=S[0:3].T,
@@ -238,6 +285,8 @@ def unpack_state(S: torch.Tensor, rb_template, ctrl_template):
         failsafe_active=S[24] > 0.0,  # informational
         last_valid_thrust=S[25],
     )
+    if back_calc:
+        ctrl = ctrl.replace(unsaturated_thrust=S[26], unsaturated_torque=S[27:30].T)
     return rb, ctrl
 
 
@@ -273,12 +322,26 @@ def run_tick_block_plain(
     obstacle_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`run_tick_block`: the tick loop of
-    the JAX kernel body (``pallas_rollout._tick_kernel``) over the same
-    rows, each row a (B,) tensor. Same signature and outputs, any device."""
+    the JAX controller (``geometric.compute_control``, both anti-windup arms
+    and both yaw conventions) and plant over the same rows, each row a (B,)
+    tensor, in the kernel's launches (:func:`tick_chunks` on the rows'
+    device). Same signature and outputs, any device."""
     s = _scalars(control_cfg, physics_cfg, control_dt, substeps)
-    S, spp, spv, spa, gw = state_rows, sp_pos, sp_vel, sp_acc, goal_wind
-    K = 0 if obstacle_rows is None else obstacle_rows.shape[0] // 4
-    obs = obstacle_rows
+    state, acc, t0 = state_rows, None, 0
+    for n in tick_chunks(T, state_rows.device):
+        rows = slice(3 * t0, 3 * (t0 + n))
+        state, more = _plain_launch(s, n, substeps, state, sp_pos[rows], sp_vel[rows],
+                                    sp_acc[rows], goal_wind, obstacle_rows)
+        acc = more if acc is None else combine_metrics(acc, more)
+        t0 += n
+    return state, acc
+
+
+def _plain_launch(s: dict, T: int, substeps: int, S, spp, spv, spa, gw, obs):
+    """One launch's ticks of :func:`run_tick_block_plain`: the JAX kernel
+    body (``pallas_rollout._tick_kernel``) with its two further arms."""
+    control_dt = s["control_dt"]
+    K = 0 if obs is None else obs.shape[0] // 4
     kp, ki, kd = s["kp"], s["ki"], s["kd"]
     kp_att, kd_att = s["kp_att"], s["kd_att"]
     inertia, max_tq, p_inertia = s["inertia"], s["max_tq"], s["p_inertia"]
@@ -311,6 +374,9 @@ def run_tick_block_plain(
     integral = vec(S, 18)
     lt_sat = vec(S, 21)
     fcount, last_valid = S[24], S[25]
+    back_calc, kb = s["back_calc"], s["kb"]
+    if back_calc:
+        u_thrust, u_torque = S[26], vec(S, 27)
     goal, wind = vec(gw, 0), vec(gw, 3)
 
     big = torch.full_like(fcount, 1e30)
@@ -334,12 +400,26 @@ def run_tick_block_plain(
         thrust_mag = torch.clamp(thrust_raw, s["min_thrust"], s["max_thrust"])
         thrust_sat = (thrust_raw != thrust_mag).to(S.dtype)
 
-        # integral, clamping anti-windup
-        damp_t = 1.0 - 0.9 * thrust_sat
+        # integral, with clamping or back-calculation anti-windup; the
+        # feedback reads the last tick's raw thrust and torque and this
+        # tick's thrust saturation, in the JAX controller's order
         new_int = []
+        if back_calc:
+            thrust_fb = sel(thrust_sat > 0.5, (u_thrust - s["max_thrust"]) * kb,
+                            torch.zeros_like(u_thrust))
+        else:
+            damp_t = 1.0 - 0.9 * thrust_sat
         for d in range(3):
-            damp = damp_t * (1.0 - 0.9 * lt_sat[d])
-            v = integral[d] + ve[d] * control_dt * damp
+            if back_calc:
+                torque_fb = sel(lt_sat[d] > 0.5, (u_torque[d] - max_tq[d]) * kb,
+                                torch.zeros_like(u_thrust))
+                upd = ve[d] * control_dt
+                upd = upd - thrust_fb * BACK_CALC_SPLIT[d]
+                upd = upd - torque_fb * 0.5
+                v = integral[d] + upd
+            else:
+                damp = damp_t * (1.0 - 0.9 * lt_sat[d])
+                v = integral[d] + ve[d] * control_dt * damp
             new_int.append(torch.clamp(v, -per_axis[d], per_axis[d]))
         mag = norm3(new_int)
         scale = sel(
@@ -366,11 +446,15 @@ def run_tick_block_plain(
             sel(over, cos_max + 0.0 * b3[2], b3[2]),
         )
 
-        # desired frame at yaw 0 (c = e1)
+        # desired frame at yaw 0 (c = e1): Lee's b1 = (b3 x c) x b3, or the
+        # reference's c x b3
         one, zero = torch.ones_like(b3[0]), torch.zeros_like(b3[0])
         e1 = (one, zero, zero)
         singular = b3[0].abs() >= s["yaw_sing"]
-        b1_raw = cross3(cross3(b3, (1.0, 0.0, 0.0)), b3)
+        if s["ref_yaw"]:
+            b1_raw = cross3((1.0, 0.0, 0.0), b3)
+        else:
+            b1_raw = cross3(cross3(b3, (1.0, 0.0, 0.0)), b3)
         n1 = norm3(b1_raw)
         ok = n1 > 1e-6
         inv_n1 = 1.0 / sel(ok, n1, one)
@@ -400,6 +484,8 @@ def run_tick_block_plain(
         )
         tq = tuple(torch.clamp(tq_raw[d], -max_tq[d], max_tq[d]) for d in range(3))
         lt_sat = tuple((tq_raw[d] != tq[d]).to(S.dtype) for d in range(3))
+        if back_calc:  # the raw values, latch or not
+            u_thrust, u_torque = thrust_raw, tq_raw
 
         # failsafe accounting
         bad = (pe_mag > s["track_thr"]) & (ve_mag > s["vel_thr"])
@@ -467,6 +553,7 @@ def run_tick_block_plain(
         list(pos) + list(vel) + list(omega)
         + [R[i][j] for i in range(3) for j in range(3)]
         + list(integral) + list(lt_sat) + [fcount, last_valid]
+        + ([u_thrust, *u_torque] if back_calc else [])
     )
     zero_row = torch.zeros_like(fcount)
     out = torch.stack(rows + [zero_row] * (ROWS - len(rows)))
@@ -492,11 +579,13 @@ def run_tick_block(
     obstacle_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run one tick block; returns ``(state_rows (32, B), accum_rows (8,
-    B))``. Inactive obstacle rows must carry r = -1e30.
+    B))``. Inactive obstacle rows must carry r = -1e30. Under
+    back-calculation the state rows carry the unsaturated thrust and torque
+    (:func:`pack_state` with ``back_calc=True``).
 
     On CUDA tensors it launches the kernel on the current stream (no
-    synchronization) or raises; on CPU tensors it runs
-    :func:`run_tick_block_plain`."""
+    synchronization), once per :func:`tick_chunks` entry, or raises; on CPU
+    tensors it runs :func:`run_tick_block_plain`."""
     args = (control_cfg, physics_cfg, control_dt, T, substeps, state_rows, sp_pos,
             sp_vel, sp_acc, goal_wind, obstacle_rows)
     if state_rows.device.type != "cuda":
@@ -511,22 +600,36 @@ def launch_tick_block(
     obstacle_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The CUDA arm of :func:`run_tick_block` on ``lib``, a library bound by
-    :func:`bind`: checks the rows and T against the card's shared memory,
-    then launches (nothing for B = 0) and counts the launch in ``LAUNCHES``.
-    Raises on anything it does not take."""
-    global LAUNCHES
+    :func:`bind`: :func:`run_library` on the current stream of the rows'
+    card, with that card current. Raises on anything it does not take."""
     device = state_rows.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA tick block takes CUDA tensors, got {device}")
+    # launched with the tensors' card current (see ops/cuda_mpc.py)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return run_library(lib, control_cfg, physics_cfg, control_dt, T, substeps,
+                           state_rows, sp_pos, sp_vel, sp_acc, goal_wind, obstacle_rows,
+                           stream)
+
+
+def run_library(
+    lib: ctypes.CDLL, control_cfg, physics_cfg, control_dt: float, T: int,
+    substeps: int, state_rows: torch.Tensor, sp_pos: torch.Tensor,
+    sp_vel: torch.Tensor, sp_acc: torch.Tensor, goal_wind: torch.Tensor,
+    obstacle_rows: torch.Tensor | None, stream,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launches of one tick block through ``lib`` (a library with the C
+    interface of ``csrc/tick_block.cu``) on ``stream``: checks the rows,
+    then launches once per entry of :func:`tick_chunks` (nothing for B =
+    0), each launch on the state the last one wrote and its own slice of the
+    setpoint rows, the metrics combined by :func:`combine_metrics`. Raises
+    if a launch fails. A launch on a CUDA stream adds one to ``LAUNCHES``;
+    ``stream=None`` (a library built for the CPU) does not."""
+    global LAUNCHES
+    device = state_rows.device
     if T < 1 or substeps < 1:
         raise ValueError(f"T and substeps must be >= 1, got {T}, {substeps}")
-    if not ticks_fit(T, device):
-        limit = shared_limit(device)
-        raise ValueError(
-            f"the tick block takes T <= {max_ticks(limit)} on {device}: T={T} needs "
-            f"{shared_bytes(T)} bytes of shared memory a block, the card's limit is "
-            f"{limit}"
-        )
     B = state_rows.shape[1]
     _check_rows("state_rows", state_rows, ROWS, B, device)
     for name, x in (("sp_pos", sp_pos), ("sp_vel", sp_vel), ("sp_acc", sp_acc)):
@@ -541,23 +644,28 @@ def launch_tick_block(
         K = obstacle_rows.shape[0] // 4
         _check_rows("obstacle_rows", obstacle_rows, 4 * K, B, device)
 
-    out = torch.empty((ROWS, B), dtype=torch.float32, device=device)
-    acc = torch.empty((ACC_ROWS, B), dtype=torch.float32, device=device)
-    if B > 0:
-        params = _launch_params(control_cfg, physics_cfg, control_dt, T, substeps, B, K)
-        # launched with the tensors' card current (see ops/cuda_mpc.py)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+    out = state_rows
+    acc, t0 = None, 0
+    for n in tick_chunks(T, device):
+        state = out
+        out = torch.empty((ROWS, B), dtype=torch.float32, device=device)
+        more = torch.empty((ACC_ROWS, B), dtype=torch.float32, device=device)
+        if B > 0:
+            params = _launch_params(control_cfg, physics_cfg, control_dt, n, substeps, B, K)
+            r = 4 * 3 * t0 * B  # the byte offset of the launch's first setpoint row
             err = lib.tick_block_launch(
-                ctypes.byref(params), state_rows.data_ptr(), sp_pos.data_ptr(),
-                sp_vel.data_ptr(), sp_acc.data_ptr(), goal_wind.data_ptr(),
+                ctypes.byref(params), state.data_ptr(), sp_pos.data_ptr() + r,
+                sp_vel.data_ptr() + r, sp_acc.data_ptr() + r, goal_wind.data_ptr(),
                 None if K == 0 else obstacle_rows.data_ptr(), out.data_ptr(),
-                acc.data_ptr(), stream,
+                more.data_ptr(), stream,
             )
-        if err != 0:
-            raise RuntimeError(
-                f"tick_block launch failed: CUDA error {err} "
-                f"({lib.tick_error_string(err).decode()})"
-            )
-        LAUNCHES += 1
+            if err != 0:
+                raise RuntimeError(
+                    f"tick_block launch failed: CUDA error {err} "
+                    f"({lib.tick_error_string(err).decode()})"
+                )
+            if stream is not None:
+                LAUNCHES += 1
+        acc = more if acc is None else combine_metrics(acc, more)
+        t0 += n
     return out, acc

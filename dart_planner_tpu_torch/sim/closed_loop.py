@@ -14,10 +14,12 @@ randomized starts, winds and obstacle fields.
   package's scan path, ``"xla"``);
 - ``"fused"``: ``solve(method="auto")`` (kernel B1 on CUDA tensors) and
   the packed tick block :func:`~dart_planner_tpu_torch.ops.cuda_rollout.
-  run_tick_block` (kernel B2 on CUDA tensors). On CPU tensors both
-  wrappers run their plain versions, so this path is testable on the CPU.
-  A config outside B2's scope (:func:`uses_tick_block`) runs the per-tick
-  loop on CPU tensors and raises on a CUDA device;
+  run_tick_block` (kernel B2 on CUDA tensors) for every configuration the
+  JAX package's closed loop takes: either anti-windup method, either yaw
+  convention, any number of ticks a replan (B2 splits a block past its
+  shared memory into launches), any batch shape (flattened to one axis for
+  the whole episode and restored in the result). On CPU tensors both
+  wrappers run their plain versions, so this path is testable on the CPU;
 - ``"auto"``: ``"fused"`` on CUDA tensors, ``"torch"`` on CPU tensors.
 
 Randomness comes from a ``torch.Generator`` on the CPU (a CPU and a GPU run
@@ -99,37 +101,13 @@ def resolve_method(method: str, device: torch.device) -> str:
 
 def uses_tick_block(config: ClosedLoopConfig, method: str, batch_shape,
                     device: torch.device) -> bool:
-    """Whether a ``method`` episode runs the packed tick block. Its scope is
-    the JAX package's: clamping anti-windup, the ``"lee"`` yaw convention,
-    one batch axis; on a CUDA device also at most as many ticks a replan
-    (``substeps_per_plan``) as kernel B2's block holds in shared memory
-    (:func:`cuda_rollout.ticks_fit`, 601 on an H100). Outside it, a "fused"
-    episode on CPU tensors runs the per-tick loop, as the JAX package does;
-    on a CUDA device the kernel was asked for, and this raises before any
-    launch instead of running the plain loop."""
-    if method != "fused":
-        return False
-    ctl = config.control
-    outside = [
-        f"{name}={value!r}"
-        for name, value, ok in (
-            ("anti_windup_method", ctl.anti_windup_method,
-             ctl.anti_windup_method == "clamping"),
-            ("yaw_convention", ctl.yaw_convention, ctl.yaw_convention == "lee"),
-            ("batch_shape", tuple(batch_shape), len(batch_shape) == 1),
-        )
-        if not ok
-    ]
-    T = config.substeps_per_plan
-    if device.type == "cuda" and not cuda_rollout.ticks_fit(T, device):
-        limit = cuda_rollout.max_ticks(cuda_rollout.shared_limit(device))
-        outside.append(f"substeps_per_plan={T} (at most {limit} on {device})")
-    if outside and device.type == "cuda":
-        raise ValueError(
-            f"kernel B2 does not take {', '.join(outside)}; pass "
-            f"method='torch' for the plain per-tick loop"
-        )
-    return not outside
+    """Whether a ``method`` episode runs the packed tick block: every
+    ``"fused"`` episode does, on either device, whatever its controller
+    configuration, ticks a replan or batch shape (kernel B2 takes them all;
+    on CPU tensors its plain version runs). ``"torch"`` runs the per-tick
+    loop. The arguments other than ``method`` are those of the dispatch, so
+    that callers read it from one place."""
+    return method == "fused"
 
 
 def _with_margins(mpc, obs: Tensor, mask: Tensor, goal: Tensor, clamped: bool) -> Tensor:
@@ -235,6 +213,11 @@ def simulate_episode(
     batch_shape = tuple(pos0.shape[:-1])
     method = resolve_method(method, device)
     use_tick_kernel = uses_tick_block(config, method, batch_shape, device)
+    if use_tick_kernel and len(batch_shape) != 1:
+        return _flat_episode(
+            config, generator, state0, goal, obstacles, obstacle_mask, method,
+            true_obstacles, true_obstacle_mask, corridor_observed, wind, noise,
+        )
     solve_method = "auto" if method == "fused" else "torch"
     goal = torch.as_tensor(goal, **kw).expand(batch_shape + (3,))
 
@@ -314,9 +297,10 @@ def simulate_episode(
     t = state0.timestamp.to(dtype)
     n_sub = config.substeps_per_plan
 
+    back_calc = cuda_rollout.back_calculation(config.control)
     if use_tick_kernel:
         B = batch_shape[0]
-        S = cuda_rollout.pack_state(rb, ctrl)
+        S = cuda_rollout.pack_state(rb, ctrl, back_calc)
         gw = torch.cat(
             [goal.T, wind.T, torch.zeros((2, B), **kw)], dim=0
         ).contiguous()
@@ -388,7 +372,7 @@ def simulate_episode(
             blocks.append(torch.stack(metrics))
 
     if use_tick_kernel:
-        rb, _ = cuda_rollout.unpack_state(S, rb, ctrl)
+        rb, _ = cuda_rollout.unpack_state(S, rb, ctrl, back_calc)
     stats = torch.stack(blocks)  # (num_replans, 4, ...)
     final_dist = torch.linalg.vector_norm(rb.position - goal, dim=-1)
     min_dist = torch.minimum(stats[:, 0].amin(0), final_dist)
@@ -404,6 +388,37 @@ def simulate_episode(
         crashed=crashed,
         success=(final_dist < config.goal_tolerance) & ~crashed,
     )
+
+
+def _flat_episode(config, generator, state0, goal, obstacles, obstacle_mask, method,
+                  true_obstacles, true_obstacle_mask, corridor_observed, wind, noise):
+    """:func:`simulate_episode` of a batch of any other rank than one, on
+    one batch axis: every per-episode input broadcast to the batch and
+    flattened in row-major order (the draws of ``generator`` come in that
+    order too), the episode flown, and each result field given the batch
+    shape back."""
+    batch_shape = tuple(state0.position.shape[:-1])
+    B = math.prod(batch_shape)
+
+    def flat(x, trailing, lead=()):
+        if x is None:
+            return None
+        x = torch.as_tensor(x, device=state0.position.device)
+        x = x.expand(lead + batch_shape + tuple(x.shape[x.ndim - trailing:]))
+        return x.reshape(lead + (B,) + tuple(x.shape[x.ndim - trailing:]))
+
+    state = state0.replace(
+        timestamp=flat(state0.timestamp, 0), position=flat(state0.position, 1),
+        velocity=flat(state0.velocity, 1), attitude=flat(state0.attitude, 1),
+        angular_velocity=flat(state0.angular_velocity, 1),
+    )
+    res = simulate_episode(
+        config, generator, state, flat(goal, 1), flat(obstacles, 2),
+        flat(obstacle_mask, 1), method, flat(true_obstacles, 2),
+        flat(true_obstacle_mask, 1), flat(corridor_observed, 1),
+        wind=flat(wind, 1), noise=flat(noise, 1, (config.num_replans,)),
+    )
+    return EpisodeResult(*(x.reshape(batch_shape + x.shape[1:]) for x in res))
 
 
 def _need(generator, what: str) -> None:

@@ -124,9 +124,10 @@ def figure8_tracking(
     (:func:`~..ops.cuda_mpc.solve_thrusts_fused`) and one of kernel B2
     (:func:`~..ops.cuda_rollout.run_tick_block`, the closed loop's tick:
     the same setpoint interpolation, ``compute_control`` and
-    ``rigid_body_step``) on a card, and their plain versions on the CPU;
-    outside B2's scope it raises on a card (:func:`~.closed_loop.
-    uses_tick_block`). ``"torch"`` is the plain solve and the per-tick
+    ``rigid_body_step``, for any controller configuration: either
+    anti-windup method, either yaw convention) on a card, and their plain
+    versions on the CPU (:func:`~.closed_loop.uses_tick_block`).
+    ``"torch"`` is the plain solve and the per-tick
     loop; ``"auto"`` is ``"fused"`` on a card, ``"torch"`` on the CPU. The
     lemniscate, the plan and the warm start stay on the device: the loop
     makes no host round trip."""
@@ -161,7 +162,7 @@ def figure8_tracking(
     gvec = frames.gravity_vector(frames.WorldFrame.ENU, mpc.gravity, device=device)
     zeros3 = torch.zeros((1, 3), **kw)
     if fused:
-        S = cuda_rollout.pack_state(rb, ctrl)
+        S = cuda_rollout.pack_state(rb, ctrl, cuda_rollout.back_calculation(control))
         goal_wind = torch.zeros((cuda_rollout.ACC_ROWS, 1), **kw)
     clock = torch.zeros((1,), **kw)
 

@@ -4,7 +4,8 @@ parallel/, sim/scenarios.py, sim/checkpoint.py).
 
 On the CPU: the sweep runs on the card unless asked for the CPU, and the
 kernel wrappers' CPU arms (their plain versions) give figure-8 the same
-flight as the per-tick path without counting a launch (1e-4 m).
+flight as the per-tick path without counting a launch (1e-4 m), under
+every controller arm.
 On a CUDA device (tests marked ``cuda``): hover-to-waypoint and mapper
 navigation with one launch of B1 each (mapper navigation's cost within
 1e-3 relative of the CPU's and its end point within 5e-2 m: at the full
@@ -60,15 +61,27 @@ def test_figure8_wrappers_on_cpu_fly_as_the_tick_loop_and_launch_nothing():
     assert scenarios.figure8_tracking(FAST, num_replans=3, device="cpu").positions.shape == (3, 3)
 
 
-def test_figure8_out_of_tick_block_scope_runs_the_tick_loop_on_cpu():
-    """On CPU tensors a config outside B2's scope flies the per-tick loop,
-    as the closed loop does; on the card it raises (closed_loop's rule)."""
-    ctl = geometric.GeometricConfig(mass=1.5, max_thrust=25.0, yaw_convention="reference")
-    a = scenarios.figure8_tracking(FAST, control=ctl, num_replans=4, device="cpu",
-                                   method="fused")
-    b = scenarios.figure8_tracking(FAST, control=ctl, num_replans=4, device="cpu",
-                                   method="torch")
-    assert torch.equal(a.positions, b.positions)
+def test_figure8_out_of_tick_block_scope_runs_the_tick_loop_on_cpu(monkeypatch):
+    """Configs once outside B2's scope (the name is the test's from then),
+    the reference yaw and back-calculation: on CPU tensors figure-8's fused
+    path now flies the packed tick block's plain version, never the
+    per-tick loop, as the per-tick path does (1e-4 m, as the default
+    controller's figure-8 above)."""
+    tick_loop = scenarios.closed_loop._tick_loop
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the per-tick loop ran on a fused figure-8")
+
+    for control in (dict(yaw_convention="reference"),
+                    dict(anti_windup_method="back_calculation")):
+        ctl = geometric.GeometricConfig(mass=1.5, max_thrust=25.0, **control)
+        monkeypatch.setattr(scenarios.closed_loop, "_tick_loop", tick_loop)
+        b = scenarios.figure8_tracking(FAST, control=ctl, num_replans=12, device="cpu",
+                                       method="torch")
+        monkeypatch.setattr(scenarios.closed_loop, "_tick_loop", refuse)
+        a = scenarios.figure8_tracking(FAST, control=ctl, num_replans=12, device="cpu",
+                                       method="fused")
+        torch.testing.assert_close(a.positions, b.positions, atol=1e-4, rtol=0)
 
 
 # ---- CUDA ---------------------------------------------------------------------
@@ -92,11 +105,19 @@ def test_cuda_figure8_through_both_kernels_matches_the_plain_path(cuda_device):
     assert fused.positions.device.type == "cuda"
     torch.testing.assert_close(fused.positions, plain.positions, atol=1e-3, rtol=0)
     torch.testing.assert_close(fused.tracking_rmse, plain.tracking_rmse, atol=0, rtol=1e-2)
-    with pytest.raises(ValueError, match="method='torch'"):
-        scenarios.figure8_tracking(
-            control=geometric.GeometricConfig(mass=1.5, max_thrust=25.0,
-                                              anti_windup_method="back_calculation"),
-            num_replans=2, device=cuda_device, method="fused")
+    # back-calculation and the reference yaw, once refused on the card: one
+    # launch of each kernel a replan, and the plain path's flight
+    for control in (dict(anti_windup_method="back_calculation"),
+                    dict(yaw_convention="reference")):
+        ctl = geometric.GeometricConfig(mass=1.5, max_thrust=25.0, **control)
+        before = (cuda_mpc.LAUNCHES, cuda_rollout.LAUNCHES)
+        fused = scenarios.figure8_tracking(control=ctl, num_replans=R, device=cuda_device,
+                                           method="auto")
+        torch.cuda.synchronize()
+        assert (cuda_mpc.LAUNCHES - before[0], cuda_rollout.LAUNCHES - before[1]) == (R, R)
+        plain = scenarios.figure8_tracking(control=ctl, num_replans=R, device=cuda_device,
+                                           method="torch")
+        torch.testing.assert_close(fused.positions, plain.positions, atol=1e-3, rtol=0)
 
 
 @pytest.mark.cuda

@@ -462,33 +462,52 @@ def test_monte_carlo_runs_and_resolves_methods():
     ("yaw_convention", {"yaw_convention": "reference"}, (4,)),
     ("batch_shape", {}, (2, 2)),
 ])
-def test_tick_block_scope_runs_plain_on_cpu_and_raises_on_cuda(field, control, batch_shape):
-    """Outside kernel B2's scope a "fused" episode runs the per-tick loop on
-    CPU tensors (as the JAX package does) and refuses a CUDA device, where
-    the kernel was asked for; "torch" never takes the tick block."""
+def test_tick_block_scope_runs_plain_on_cpu_and_raises_on_cuda(monkeypatch, field, control,
+                                                               batch_shape):
+    """Kernel B2 takes every configuration of the closed loop: a "fused"
+    episode runs the packed tick block on either device and raises on none
+    (each case here was refused on a CUDA device before B2 took it); on CPU
+    tensors that is the block's plain version, never the per-tick loop,
+    and it flies as the per-tick ("torch") path does. "torch" never takes
+    the tick block."""
     cfg = TL.ClosedLoopConfig()
     cfg = cfg._replace(control=cfg.control._replace(**control))
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-    assert TL.uses_tick_block(cfg, "fused", batch_shape, cpu) is (field is None)
-    assert not TL.uses_tick_block(cfg, "torch", batch_shape, cuda)
-    if field is None:
-        assert TL.uses_tick_block(cfg, "fused", batch_shape, cuda)
-    else:
-        with pytest.raises(ValueError, match=f"{field}.*method='torch'"):
-            TL.uses_tick_block(cfg, "fused", batch_shape, cuda)
+    for device in (cpu, cuda):
+        assert TL.uses_tick_block(cfg, "fused", batch_shape, device)
+        assert not TL.uses_tick_block(cfg, "torch", batch_shape, device)
+    _, tcfg = _configs(mpc=JM.SE3MPCConfig(prediction_horizon=8, max_iterations=2,
+                                           tail_iterations=0),
+                       control=JG.GeometricConfig(mass=1.5, max_thrust=25.0, **control),
+                       num_replans=2, substeps_per_plan=10)
+    rng = np.random.default_rng(len(batch_shape) + len(control))
+    pos = _np(rng.normal(0, 1, batch_shape + (3,)) + [0, 0, 4])
+    ts = DroneState.zeros(batch_shape, device="cpu").replace(position=torch.tensor(pos))
+    goals = torch.tensor(_np(rng.normal(0, 2, batch_shape + (3,)) + [0, 0, 4]))
+    r_torch = TL.simulate_episode(tcfg, None, ts, goals, method="torch")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the per-tick loop ran on a fused episode")
+
+    monkeypatch.setattr(TL, "_tick_loop", refuse)
+    r_fused = TL.simulate_episode(tcfg, None, ts, goals, method="fused")
+    assert r_fused.final_position.shape == batch_shape + (3,)
+    for f in ("final_position", "tracking_rmse", "min_distance"):
+        np.testing.assert_allclose(getattr(r_fused, f).numpy(), getattr(r_torch, f).numpy(),
+                                   atol=1e-4, err_msg=f)
 
 
 @pytest.mark.parametrize("T, fits", [(40, True), (601, True), (602, False)])
 def test_tick_block_scope_holds_the_ticks_a_block_takes(monkeypatch, T, fits):
-    """On a CUDA device a replan of more ticks than kernel B2's block holds
-    (601 at an H100's opt-in shared memory) raises before any launch; on CPU
-    tensors the per-tick loop has no such limit."""
+    """A replan of more ticks than kernel B2's block holds (601 at an H100's
+    opt-in shared memory) runs as consecutive launches, on either device:
+    the closed loop takes the tick block for any T, and the wrapper splits
+    the block (on the CPU, as an H100 would)."""
     monkeypatch.setattr(TL.cuda_rollout, "shared_limit", lambda device: 232448)
     cfg = TL.ClosedLoopConfig(substeps_per_plan=T)
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-    assert TL.uses_tick_block(cfg, "fused", (4,), cpu)
-    if fits:
-        assert TL.uses_tick_block(cfg, "fused", (4,), cuda)
-    else:
-        with pytest.raises(ValueError, match="substeps_per_plan=602 .at most 601.*method='torch'"):
-            TL.uses_tick_block(cfg, "fused", (4,), cuda)
+    for device in (cpu, cuda):
+        assert TL.uses_tick_block(cfg, "fused", (4,), device)
+        chunks = TL.cuda_rollout.tick_chunks(T, device)
+        assert chunks == ((T,) if fits else (601, T - 601))
+        assert len(chunks) == -(-T // 601) and sum(chunks) == T
