@@ -210,7 +210,14 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     does not fit the card's shared memory), a float32 scratch of its size.
     Raises if the launch fails; an empty batch launches nothing. A launch on
     a CUDA stream adds one to ``LAUNCHES``; ``stream=None`` (a library built
-    for the CPU) does not."""
+    for the CPU) does not. Timed whole as the span ``b1.wrapper``."""
+    from dart_planner_tpu_torch.common.metrics import span  # common shares ops' layer
+
+    with span("b1.wrapper"):
+        return _run_library(library, config, prob, u_init, use_obstacles, stream)
+
+
+def _run_library(library, config, prob, u_init, use_obstacles, stream) -> tuple:
     global LAUNCHES
     device = u_init.device
     N = config.prediction_horizon

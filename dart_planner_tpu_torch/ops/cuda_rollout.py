@@ -305,14 +305,17 @@ def setpoints_from_plan(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plan arrays (B, N, 3) -> per-tick setpoint rows (3T, B) each (row
     3t+d is axis d at tick t), by a plain float32 einsum."""
-    W = _lerp_tensor(T, control_dt, mpc_dt, positions.shape[-2], positions.dtype,
-                     positions.device)
+    from dart_planner_tpu_torch.common.metrics import span  # common shares ops' layer
 
-    def to_rows(arr):
-        sp = torch.einsum("tn,bnd->btd", W, arr)
-        return sp.reshape(arr.shape[0], 3 * T).T.contiguous()
+    with span("b2.setpoints"):
+        W = _lerp_tensor(T, control_dt, mpc_dt, positions.shape[-2], positions.dtype,
+                         positions.device)
 
-    return to_rows(positions), to_rows(velocities), to_rows(accelerations)
+        def to_rows(arr):
+            sp = torch.einsum("tn,bnd->btd", W, arr)
+            return sp.reshape(arr.shape[0], 3 * T).T.contiguous()
+
+        return to_rows(positions), to_rows(velocities), to_rows(accelerations)
 
 
 def run_tick_block_plain(
@@ -586,11 +589,14 @@ def run_tick_block(
     On CUDA tensors it launches the kernel on the current stream (no
     synchronization), once per :func:`tick_chunks` entry, or raises; on CPU
     tensors it runs :func:`run_tick_block_plain`."""
-    args = (control_cfg, physics_cfg, control_dt, T, substeps, state_rows, sp_pos,
-            sp_vel, sp_acc, goal_wind, obstacle_rows)
-    if state_rows.device.type != "cuda":
-        return run_tick_block_plain(*args)
-    return launch_tick_block(_library(), *args)
+    from dart_planner_tpu_torch.common.metrics import span  # common shares ops' layer
+
+    with span("b2.wrapper"):
+        args = (control_cfg, physics_cfg, control_dt, T, substeps, state_rows, sp_pos,
+                sp_vel, sp_acc, goal_wind, obstacle_rows)
+        if state_rows.device.type != "cuda":
+            return run_tick_block_plain(*args)
+        return launch_tick_block(_library(), *args)
 
 
 def launch_tick_block(

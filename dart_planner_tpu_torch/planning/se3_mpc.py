@@ -28,6 +28,7 @@ import torch
 
 from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.common.device import default_device, resolve_device
+from dart_planner_tpu_torch.common.metrics import span
 from dart_planner_tpu_torch.common.types import DroneState, Trajectory
 from dart_planner_tpu_torch.ops import costs, cuda_mpc, dynamics, so3
 from dart_planner_tpu_torch.planning.base import BasePlanner
@@ -175,6 +176,7 @@ def effective_margins(config: SE3MPCConfig, obstacles: Tensor, goal_pt: Tensor) 
     )
 
 
+@span("mpc.make_problem")
 def make_problem(
     position,
     velocity,
@@ -248,6 +250,7 @@ def _quadratic_weights(config: SE3MPCConfig) -> costs.CostWeights:
     )
 
 
+@span("mpc.cold_start")
 def initialize_thrusts(
     config: SE3MPCConfig, prob: costs.Problem, mode: Optional[str] = None
 ) -> Tensor:
@@ -448,6 +451,7 @@ def solve_se3_mpc(
     return _finalize(config, prob, u, min_improvement, with_grad=with_grad)
 
 
+@span("mpc.finalize")
 def _finalize(
     config: SE3MPCConfig,
     prob: costs.Problem,
@@ -624,6 +628,7 @@ def _unflatten(res: SolveResult, batch_shape) -> SolveResult:
     )
 
 
+@span("mpc.tail")
 def _tail_refine(
     config: SE3MPCConfig,
     prob: costs.Problem,
@@ -658,6 +663,7 @@ def _tail_refine(
     return _unflatten(out, batch_shape)
 
 
+@span("mpc.restart")
 def _perturbed_restart(
     config: SE3MPCConfig,
     prob: costs.Problem,
@@ -715,6 +721,7 @@ def resolve_method(prob: costs.Problem, method: str) -> str:
     return method
 
 
+@span("mpc.solve")
 def solve(
     config: SE3MPCConfig,
     prob: costs.Problem,
@@ -737,6 +744,7 @@ def solve(
     return res
 
 
+@span("mpc.extract")
 def extract_trajectory(
     config: SE3MPCConfig, result: SolveResult, start_time
 ) -> Trajectory:

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dart_planner_tpu_torch.common.device import default_device
+from dart_planner_tpu_torch.common.metrics import span
 from dart_planner_tpu_torch.common.types import DroneState
 from dart_planner_tpu_torch.control import geometric
 from dart_planner_tpu_torch.ops import costs, cuda_rollout
@@ -218,176 +219,184 @@ def simulate_episode(
             config, generator, state0, goal, obstacles, obstacle_mask, method,
             true_obstacles, true_obstacle_mask, corridor_observed, wind, noise,
         )
-    solve_method = "auto" if method == "fused" else "torch"
-    goal = torch.as_tensor(goal, **kw).expand(batch_shape + (3,))
+    with span("loop.prepare"):
+        solve_method = "auto" if method == "fused" else "torch"
+        goal = torch.as_tensor(goal, **kw).expand(batch_shape + (3,))
 
-    def batched(x, trailing):
-        return x.expand(batch_shape + tuple(x.shape[-trailing:]))
+        def batched(x, trailing):
+            return x.expand(batch_shape + tuple(x.shape[-trailing:]))
 
-    K = mpc.max_obstacles
-    if obstacles is None:
-        obstacles = torch.zeros((K, 4), **kw)
-        obstacle_mask = torch.zeros((K,), dtype=torch.bool, device=device)
-    else:
-        obstacles = torch.as_tensor(obstacles, **kw)
-        if obstacle_mask is None:
-            obstacle_mask = torch.ones(obstacles.shape[:-1], dtype=torch.bool, device=device)
-        if true_obstacles is None:
-            true_obstacles, true_obstacle_mask = obstacles, obstacle_mask
-    obstacles = batched(obstacles, 2)
-    obstacle_mask = batched(torch.as_tensor(obstacle_mask, device=device), 1)
-    track_collisions = true_obstacles is not None
-    if track_collisions:
-        true_obstacles = batched(torch.as_tensor(true_obstacles, **kw), 2)
-        if true_obstacle_mask is None:
-            true_obstacle_mask = torch.ones(
-                true_obstacles.shape[:-1], dtype=torch.bool, device=device
-            )
-        true_obstacle_mask = batched(
-            torch.as_tensor(true_obstacle_mask, device=device), 1
-        )
-
-    # margins: full always; goal-clamped for the endgame when enabled
-    gate_clamp = mpc.goal_margin_clamp > 0.0
-    use_sensing = config.sense_radius > 0.0 and track_collisions
-
-    def plan_set(clamped):
-        obs = _with_margins(mpc, obstacles, obstacle_mask, goal, clamped)
-        if use_sensing:
-            sensed = _with_margins(
-                mpc, true_obstacles, true_obstacle_mask, goal, clamped
-            )
-            obs = torch.cat([obs, sensed], dim=-2)
-        return obs
-
-    plan_obs = plan_set(False)
-    plan_obs_clamped = plan_set(True) if gate_clamp else None
-
-    use_vcap = config.unknown_speed_cap > 0.0 and corridor_observed is not None
-    if use_vcap:
-        corridor_observed = torch.as_tensor(corridor_observed, **kw)
-        M = corridor_observed.shape[-1]
-        tgrid = unit_linspace(M, **kw)
-        corr_pts = pos0[..., None, :] + tgrid[:, None] * (goal - pos0)[..., None, :]
-        corr_unknown = corridor_observed < config.unknown_coverage
-
-    if wind is None:
-        if config.wind_mean == 0.0 and config.wind_std == 0.0:
-            wind = torch.zeros(batch_shape + (3,), **kw)
+        K = mpc.max_obstacles
+        if obstacles is None:
+            obstacles = torch.zeros((K, 4), **kw)
+            obstacle_mask = torch.zeros((K,), dtype=torch.bool, device=device)
         else:
-            _need(generator, "wind")
-            wind = phys.sample_wind(
-                generator, batch_shape, config.wind_mean, config.wind_std,
-                dtype, device,
-            )
-    wind = torch.as_tensor(wind, **kw).expand(batch_shape + (3,))
-    if noise is None and config.sensor_noise_std > 0.0:
-        _need(generator, "sensor noise")
-        noise = config.sensor_noise_std * torch.randn(
-            (config.num_replans,) + batch_shape + (6,), generator=generator,
-            dtype=dtype,
-        ).to(device)
-    elif noise is not None:
-        noise = torch.as_tensor(noise, **kw)
-
-    rb = phys.RigidBodyState.from_drone_state(state0)
-    ctrl = geometric.ControllerState.zeros(config.control, batch_shape, dtype, device)
-    hover = torch.tensor([0.0, 0.0, mpc.hover_thrust], **kw)
-    u_warm = hover.expand(batch_shape + (mpc.prediction_horizon, 3))
-    t = state0.timestamp.to(dtype)
-    n_sub = config.substeps_per_plan
-
-    back_calc = cuda_rollout.back_calculation(config.control)
-    if use_tick_kernel:
-        B = batch_shape[0]
-        S = cuda_rollout.pack_state(rb, ctrl, back_calc)
-        gw = torch.cat(
-            [goal.T, wind.T, torch.zeros((2, B), **kw)], dim=0
-        ).contiguous()
-        obs_rows = None
+            obstacles = torch.as_tensor(obstacles, **kw)
+            if obstacle_mask is None:
+                obstacle_mask = torch.ones(obstacles.shape[:-1], dtype=torch.bool, device=device)
+            if true_obstacles is None:
+                true_obstacles, true_obstacle_mask = obstacles, obstacle_mask
+        obstacles = batched(obstacles, 2)
+        obstacle_mask = batched(torch.as_tensor(obstacle_mask, device=device), 1)
+        track_collisions = true_obstacles is not None
         if track_collisions:
-            obs_rows = cuda_rollout.pack_obstacles(true_obstacles, true_obstacle_mask)
+            true_obstacles = batched(torch.as_tensor(true_obstacles, **kw), 2)
+            if true_obstacle_mask is None:
+                true_obstacle_mask = torch.ones(
+                    true_obstacles.shape[:-1], dtype=torch.bool, device=device
+                )
+            true_obstacle_mask = batched(
+                torch.as_tensor(true_obstacle_mask, device=device), 1
+            )
+
+        # margins: full always; goal-clamped for the endgame when enabled
+        gate_clamp = mpc.goal_margin_clamp > 0.0
+        use_sensing = config.sense_radius > 0.0 and track_collisions
+
+        def plan_set(clamped):
+            obs = _with_margins(mpc, obstacles, obstacle_mask, goal, clamped)
+            if use_sensing:
+                sensed = _with_margins(
+                    mpc, true_obstacles, true_obstacle_mask, goal, clamped
+                )
+                obs = torch.cat([obs, sensed], dim=-2)
+            return obs
+
+        plan_obs = plan_set(False)
+        plan_obs_clamped = plan_set(True) if gate_clamp else None
+
+        use_vcap = config.unknown_speed_cap > 0.0 and corridor_observed is not None
+        if use_vcap:
+            corridor_observed = torch.as_tensor(corridor_observed, **kw)
+            M = corridor_observed.shape[-1]
+            tgrid = unit_linspace(M, **kw)
+            corr_pts = pos0[..., None, :] + tgrid[:, None] * (goal - pos0)[..., None, :]
+            corr_unknown = corridor_observed < config.unknown_coverage
+
+        if wind is None:
+            if config.wind_mean == 0.0 and config.wind_std == 0.0:
+                wind = torch.zeros(batch_shape + (3,), **kw)
+            else:
+                _need(generator, "wind")
+                wind = phys.sample_wind(
+                    generator, batch_shape, config.wind_mean, config.wind_std,
+                    dtype, device,
+                )
+        wind = torch.as_tensor(wind, **kw).expand(batch_shape + (3,))
+        if noise is None and config.sensor_noise_std > 0.0:
+            _need(generator, "sensor noise")
+            noise = config.sensor_noise_std * torch.randn(
+                (config.num_replans,) + batch_shape + (6,), generator=generator,
+                dtype=dtype,
+            ).to(device)
+        elif noise is not None:
+            noise = torch.as_tensor(noise, **kw)
+
+        rb = phys.RigidBodyState.from_drone_state(state0)
+        ctrl = geometric.ControllerState.zeros(config.control, batch_shape, dtype, device)
+        hover = torch.tensor([0.0, 0.0, mpc.hover_thrust], **kw)
+        u_warm = hover.expand(batch_shape + (mpc.prediction_horizon, 3))
+        t = state0.timestamp.to(dtype)
+        n_sub = config.substeps_per_plan
+
+        back_calc = cuda_rollout.back_calculation(config.control)
+        if use_tick_kernel:
+            B = batch_shape[0]
+            S = cuda_rollout.pack_state(rb, ctrl, back_calc)
+            gw = torch.cat(
+                [goal.T, wind.T, torch.zeros((2, B), **kw)], dim=0
+            ).contiguous()
+            obs_rows = None
+            if track_collisions:
+                obs_rows = cuda_rollout.pack_obstacles(true_obstacles, true_obstacle_mask)
 
     blocks = []
     for block in range(config.num_replans):
-        if use_tick_kernel:
-            p_now, v_now = S[0:3].T, S[3:6].T
-        else:
-            p_now, v_now = rb.position, rb.velocity
-        v_cap = None
-        if use_vcap:
-            # distance to the nearest UNKNOWN corridor sample; the cap ramps
-            # from unknown_speed_cap (adjacent) to max_velocity
-            d = torch.linalg.vector_norm(p_now[..., None, :] - corr_pts, dim=-1)
-            d_unk = torch.where(corr_unknown, d, math.inf).amin(-1)
-            ramp = torch.clamp(
-                (d_unk - config.unknown_margin) / config.unknown_ramp, 0.0, 1.0
+        with span("loop.replan"):
+            if use_tick_kernel:
+                p_now, v_now = S[0:3].T, S[3:6].T
+            else:
+                p_now, v_now = rb.position, rb.velocity
+            v_cap = None
+            if use_vcap:
+                with span("loop.speed_cap"):
+                    # distance to the nearest UNKNOWN corridor sample; the cap ramps
+                    # from unknown_speed_cap (adjacent) to max_velocity
+                    d = torch.linalg.vector_norm(p_now[..., None, :] - corr_pts, dim=-1)
+                    d_unk = torch.where(corr_unknown, d, math.inf).amin(-1)
+                    ramp = torch.clamp(
+                        (d_unk - config.unknown_margin) / config.unknown_ramp, 0.0, 1.0
+                    )
+                    v_cap = (
+                        config.unknown_speed_cap
+                        + (mpc.max_velocity - config.unknown_speed_cap) * ramp
+                    )
+            obs_b = plan_obs
+            if gate_clamp:
+                with span("loop.margins"):
+                    # clamped margins only inside the endgame ball around the goal
+                    near = (torch.linalg.vector_norm(p_now - goal, dim=-1)
+                            < config.goal_clamp_radius)
+                    obs_b = torch.where(near[..., None, None], plan_obs_clamped, plan_obs)
+            mask_b = obstacle_mask
+            if use_sensing:
+                with span("loop.sensing"):
+                    gap = torch.linalg.vector_norm(
+                        p_now[..., None, :] - true_obstacles[..., :3], dim=-1
+                    ) - true_obstacles[..., 3]
+                    sensed = true_obstacle_mask & (gap <= config.sense_radius)
+                    mask_b = torch.cat([obstacle_mask, sensed], dim=-1)
+            with span("loop.problem"):
+                p_meas, v_meas = p_now, v_now
+                if noise is not None:
+                    p_meas = p_now + noise[block, ..., :3]
+                    v_meas = v_now + noise[block, ..., 3:]
+                prob = costs.Problem(
+                    p0=p_meas, v0=v_meas, goal=goal, obstacles=obs_b,
+                    obstacle_mask=mask_b, v_cap=v_cap,
+                )
+            res = se3_mpc.solve(
+                mpc, prob, se3_mpc.shift_warm_start(mpc, u_warm), method=solve_method
             )
-            v_cap = (
-                config.unknown_speed_cap
-                + (mpc.max_velocity - config.unknown_speed_cap) * ramp
-            )
-        obs_b = plan_obs
-        if gate_clamp:
-            # clamped margins only inside the endgame ball around the goal
-            near = torch.linalg.vector_norm(p_now - goal, dim=-1) < config.goal_clamp_radius
-            obs_b = torch.where(near[..., None, None], plan_obs_clamped, plan_obs)
-        mask_b = obstacle_mask
-        if use_sensing:
-            gap = torch.linalg.vector_norm(
-                p_now[..., None, :] - true_obstacles[..., :3], dim=-1
-            ) - true_obstacles[..., 3]
-            sensed = true_obstacle_mask & (gap <= config.sense_radius)
-            mask_b = torch.cat([obstacle_mask, sensed], dim=-1)
-        p_meas, v_meas = p_now, v_now
-        if noise is not None:
-            p_meas = p_now + noise[block, ..., :3]
-            v_meas = v_now + noise[block, ..., 3:]
-        prob = costs.Problem(
-            p0=p_meas, v0=v_meas, goal=goal, obstacles=obs_b,
-            obstacle_mask=mask_b, v_cap=v_cap,
-        )
-        res = se3_mpc.solve(
-            mpc, prob, se3_mpc.shift_warm_start(mpc, u_warm), method=solve_method
-        )
-        u_warm = res.thrusts
+            u_warm = res.thrusts
 
-        if use_tick_kernel:
-            spp, spv, spa = cuda_rollout.setpoints_from_plan(
-                res.positions, res.velocities, res.accelerations,
-                n_sub, config.control_dt, mpc.dt,
-            )
-            S, acc = cuda_rollout.run_tick_block(
-                config.control, config.physics, config.control_dt, n_sub,
-                config.physics_substeps, S, spp, spv, spa, gw, obs_rows,
-            )
-            t = t + n_sub * config.control_dt
-            blocks.append(acc[:4])
-        else:
-            rb, ctrl, t, metrics = _tick_loop(
-                config, rb, ctrl, t, res, goal, wind,
-                true_obstacles if track_collisions else None,
-                true_obstacle_mask,
-            )
-            blocks.append(torch.stack(metrics))
+            if use_tick_kernel:
+                spp, spv, spa = cuda_rollout.setpoints_from_plan(
+                    res.positions, res.velocities, res.accelerations,
+                    n_sub, config.control_dt, mpc.dt,
+                )
+                S, acc = cuda_rollout.run_tick_block(
+                    config.control, config.physics, config.control_dt, n_sub,
+                    config.physics_substeps, S, spp, spv, spa, gw, obs_rows,
+                )
+                t = t + n_sub * config.control_dt
+                blocks.append(acc[:4])
+            else:
+                rb, ctrl, t, metrics = _tick_loop(
+                    config, rb, ctrl, t, res, goal, wind,
+                    true_obstacles if track_collisions else None,
+                    true_obstacle_mask,
+                )
+                blocks.append(torch.stack(metrics))
 
-    if use_tick_kernel:
-        rb, _ = cuda_rollout.unpack_state(S, rb, ctrl, back_calc)
-    stats = torch.stack(blocks)  # (num_replans, 4, ...)
-    final_dist = torch.linalg.vector_norm(rb.position - goal, dim=-1)
-    min_dist = torch.minimum(stats[:, 0].amin(0), final_dist)
-    rmse = torch.sqrt(stats[:, 1].sum(0) / (config.num_replans * n_sub))
-    min_clear = stats[:, 3].amin(0)
-    crashed = (stats[:, 2].amin(0) < config.min_altitude) | (min_clear < 0.0)
-    return EpisodeResult(
-        final_position=rb.position,
-        final_distance=final_dist,
-        min_distance=min_dist,
-        tracking_rmse=rmse,
-        min_obstacle_clearance=min_clear,
-        crashed=crashed,
-        success=(final_dist < config.goal_tolerance) & ~crashed,
-    )
+    with span("loop.outcome"):
+        if use_tick_kernel:
+            rb, _ = cuda_rollout.unpack_state(S, rb, ctrl, back_calc)
+        stats = torch.stack(blocks)  # (num_replans, 4, ...)
+        final_dist = torch.linalg.vector_norm(rb.position - goal, dim=-1)
+        min_dist = torch.minimum(stats[:, 0].amin(0), final_dist)
+        rmse = torch.sqrt(stats[:, 1].sum(0) / (config.num_replans * n_sub))
+        min_clear = stats[:, 3].amin(0)
+        crashed = (stats[:, 2].amin(0) < config.min_altitude) | (min_clear < 0.0)
+        return EpisodeResult(
+            final_position=rb.position,
+            final_distance=final_dist,
+            min_distance=min_dist,
+            tracking_rmse=rmse,
+            min_obstacle_clearance=min_clear,
+            crashed=crashed,
+            success=(final_dist < config.goal_tolerance) & ~crashed,
+        )
 
 
 def _flat_episode(config, generator, state0, goal, obstacles, obstacle_mask, method,

@@ -34,9 +34,6 @@ tests/test_torch_cuda_mpc.py and ``chip_smoke.py`` phase 18.
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -46,8 +43,9 @@ from dart_planner_tpu.config import frozen_config as J_fc
 from dart_planner_tpu.planning import se3_mpc as J
 from dart_planner_tpu_torch import interop
 from dart_planner_tpu_torch.config import frozen_config as T_fc
-from dart_planner_tpu_torch.ops import _build, cuda_mpc, dynamics
+from dart_planner_tpu_torch.ops import cuda_mpc, dynamics
 from dart_planner_tpu_torch.planning import se3_mpc as T
+from _emulated_b1 import build_emulated_library
 from _torch_one_thread import one_torch_thread  # noqa: F401
 
 
@@ -122,52 +120,12 @@ def test_kernel_horizon_covers_the_front_door(module, emulated_library):
         assert float(out[4]) <= float(cuda_mpc.exact_cost(config, prob, u0)) * (1 + 1e-5)
 
 
-# what the emulation header declares: the shared memory, in each of the
-# kernel's translation units, and the globals, once
-_EMULATION_SMEM = """
-namespace { float smem[1 << 22]; }
-"""
-_EMULATION_GLOBALS = """
-#include <cuda_runtime.h>
-int emu_smem_optin = 232448;
-extern "C" void emu_set_smem_optin(int bytes) { emu_smem_optin = bytes; }
-thread_local uint3 threadIdx, blockIdx;
-static std::barrier<> emu_barrier(32);
-std::barrier<>* emu_warp = &emu_barrier;
-float emu_buf[32];
-unsigned emu_bits[32];
-"""
-
-
 @pytest.fixture(scope="module")
 def emulated_library(tmp_path_factory):
-    """``csrc/mpc_solve.cu`` and ``csrc/mpc_solve_steps.cu`` (which includes
-    it) compiled by g++ (C++20) for the CPU as nvcc builds them, two
-    translation units, bound with the kernel's C interface: its one
-    ``<<<...>>>`` launch becomes a call of the header's launcher; ``-mfma
-    -ffp-contract=fast`` contracts into FMAs as nvcc does, square roots and
-    divisions stay IEEE as nvcc's defaults. A 16-scenario round at N=128
-    takes a few seconds."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel's CPU emulation")
-    source = _build.SRC_DIR / "mpc_solve.cu"
-    text, n = re.subn(r"(\w+<S>)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", source.read_text())
-    assert n == 1, f"{source}: expected one kernel launch, found {n}"
-    out = tmp_path_factory.mktemp("emulation")
-    (out / "mpc_solve.cu").write_text(text + _EMULATION_SMEM)
-    shutil.copy(_build.SRC_DIR / "mpc_solve_steps.cu", out)
-    (out / "emulation.cpp").write_text(_EMULATION_GLOBALS)
-    subprocess.run([gxx, "-std=c++20", "-O2", "-mfma", "-ffp-contract=fast", "-fPIC",
-                    "-shared", "-pthread", f"-I{_build.SRC_DIR / 'emulation'}",
-                    "-o", str(out / "libmpc_solve.so"), "-x", "c++",
-                    *(str(out / f) for f in ("mpc_solve.cu", "mpc_solve_steps.cu",
-                                             "emulation.cpp"))],
-                   check=True, capture_output=True, text=True)
-    lib = cuda_mpc.bind(ctypes.CDLL(str(out / "libmpc_solve.so")))
-    assert lib.mpc_params_size() == ctypes.sizeof(cuda_mpc._Params)
-    lib.emu_set_smem_optin.argtypes = [ctypes.c_int]
-    return lib
+    """``csrc/mpc_solve.cu`` and ``csrc/mpc_solve_steps.cu`` compiled by g++
+    for the CPU as nvcc builds them (``_emulated_b1.build_emulated_library``),
+    bound with the kernel's C interface."""
+    return build_emulated_library(tmp_path_factory.mktemp("emulation"))
 
 
 def _bench_problem(config, batch, seed):
