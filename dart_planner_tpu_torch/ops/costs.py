@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from dart_planner_tpu_torch.ops import dynamics
+from dart_planner_tpu_torch.ops.device_constants import device_constant, vector
 
 Tensor = torch.Tensor
 
@@ -68,8 +69,10 @@ def effective_vmax(prob: Problem, weights: CostWeights):
 
 
 def _hover(u: Tensor, mass: float, gravity_vec: Tensor) -> Tensor:
-    """m |g| e3 from the signed gravity vector, as a device op (no sync)."""
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=u.dtype, device=u.device)
+    """m |g| e3 from the signed gravity vector: e3 is made on ``u``'s device
+    once (:mod:`.device_constants`), the product is a device op, so the
+    call neither uploads nor waits."""
+    e3 = vector((0.0, 0.0, 1.0), u.dtype, u.device)
     return e3 * (mass * gravity_vec[2].abs())
 
 
@@ -142,6 +145,13 @@ def condensed_cost(
     return J
 
 
+def _transposed_maps_on(N: int, dt: float, *, dtype, device) -> tuple[Tensor, Tensor]:
+    """(S_p^T, S_v^T) of :func:`~.dynamics.rollout_matrices` on ``device``."""
+    S_p, S_v, _ = dynamics.rollout_matrices(N, dt)
+    return (torch.as_tensor(S_p.T, dtype=dtype, device=device),
+            torch.as_tensor(S_v.T, dtype=dtype, device=device))
+
+
 def condensed_grad(
     u: Tensor,
     prob: Problem,
@@ -182,10 +192,8 @@ def condensed_grad(
         vviol = torch.clamp(vel.abs() - effective_vmax(prob, w), min=0.0)
         gvel = gvel + (2.0 * w.velocity_bound) * torch.sign(vel) * vviol
 
-    S_p, S_v, _ = dynamics.rollout_matrices(N, float(dt))
-    kw = dict(dtype=u.dtype, device=u.device)
-    S_pT = torch.as_tensor(S_p.T, **kw)
-    S_vT = torch.as_tensor(S_v.T, **kw)
+    S_pT, S_vT = device_constant(_transposed_maps_on, N, float(dt), dtype=u.dtype,
+                                 device=u.device)
     ga = dynamics.apply_steps(S_pT, gpos) + dynamics.apply_steps(S_vT, gvel)
     ga = ga + 2.0 * w.acceleration * acc
     grad = ga / mass + 2.0 * w.thrust * (u - hover)
@@ -264,12 +272,10 @@ def obstacle_gn_hessian(
         e_zz = torch.zeros((3, 3), **kw)
         e_zz[2, 2] = 1.0
         Hp = Hp + 2.0 * weights.ground * g_active[..., None, None] * e_zz
-    S_p_np, S_v_np, _ = dynamics.rollout_matrices(N, float(dt))
-    S_p = torch.as_tensor(S_p_np, **kw) / mass
+    S_p, S_v = dynamics.scaled_maps(N, dt, mass, u.dtype, u.device)
     H_u = torch.einsum("ki,kj,...kab->...iajb", S_p, S_p, Hp)
     if weights.velocity_bound > 0.0:
         v_active = (vel.abs() > effective_vmax(prob, weights)).to(u.dtype)
-        S_v = torch.as_tensor(S_v_np, **kw) / mass
         # per-axis blocks: the axes never couple, so spread with delta_ab
         tmp = torch.einsum(
             "ki,kj,...ka->...iaj", S_v, S_v, 2.0 * weights.velocity_bound * v_active

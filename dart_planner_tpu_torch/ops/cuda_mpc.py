@@ -14,7 +14,8 @@ quadratic Hessian as warp scans (``csrc/mpc_solve.cu``;
 :func:`~dart_planner_tpu_torch.ops.dynamics.apply_structured` is the same
 identity in plain PyTorch). Its only constants are two step vectors and the
 line search's alphas, built once per configuration and device on the host
-(the vectors in float64), cast to float32 and uploaded.
+(the vectors in float64), cast to float32 and uploaded
+(:mod:`.device_constants`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from dart_planner_tpu_torch.ops import _build, costs, dynamics
+from dart_planner_tpu_torch.ops.device_constants import device_constant
 
 SOURCE = "dart_planner_tpu_torch/csrc/mpc_solve.cu"
 REPLACES = "dart_planner_tpu/ops/pallas_mpc.py:806"
@@ -110,9 +112,8 @@ def constants_host(config) -> torch.Tensor:
     return torch.cat([out.reshape(-1), alphas])
 
 
-@functools.lru_cache(maxsize=32)
-def _constants(config, device: str) -> torch.Tensor:
-    return constants_host(config).to(device)
+def _constants_on(config, *, dtype, device) -> torch.Tensor:
+    return constants_host(config).to(device=device, dtype=dtype)
 
 
 def _params(config, B: int, K: int, use_obstacles: bool) -> _Params:
@@ -248,7 +249,7 @@ def _run_library(library, config, prob, u_init, use_obstacles, stream) -> tuple:
     if B > 0:
         lib = library()
         params = _params(config, B, K, use_obstacles)
-        consts = _constants(config, str(device))
+        consts = device_constant(_constants_on, config, dtype=torch.float32, device=device)
         n_scratch = lib.mpc_scratch_floats(ctypes.byref(params))
         if n_scratch < 0:
             err = -n_scratch

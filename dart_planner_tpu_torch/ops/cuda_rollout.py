@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from dart_planner_tpu_torch.ops import _build
+from dart_planner_tpu_torch.ops.device_constants import device_constant
 
 SOURCE = "dart_planner_tpu_torch/csrc/tick_block.cu"
 REPLACES = "dart_planner_tpu/ops/pallas_rollout.py:357"
@@ -235,12 +236,17 @@ def _lerp_weights(T: int, control_dt: float, mpc_dt: float, N: int) -> np.ndarra
     return W
 
 
-@functools.lru_cache(maxsize=16)
-def _lerp_tensor(T: int, control_dt: float, mpc_dt: float, N: int, dtype: torch.dtype,
-                 device: torch.device) -> torch.Tensor:
-    """:func:`_lerp_weights` on ``device``, copied there once per shape."""
+def _lerp_on(T: int, control_dt: float, mpc_dt: float, N: int, *, dtype,
+             device) -> torch.Tensor:
     return torch.as_tensor(_lerp_weights(T, control_dt, mpc_dt, N), dtype=dtype,
                            device=device)
+
+
+def _lerp_tensor(T: int, control_dt: float, mpc_dt: float, N: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """:func:`_lerp_weights` on ``device``, copied there once per shape
+    (:mod:`.device_constants`; read only)."""
+    return device_constant(_lerp_on, T, control_dt, mpc_dt, N, dtype=dtype, device=device)
 
 
 def pack_state(rb, ctrl, back_calc: bool = False) -> torch.Tensor:

@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from dart_planner_tpu_torch.ops.device_constants import device_constant
+
 Tensor = torch.Tensor
 
 
@@ -33,6 +35,29 @@ def rollout_matrices(N: int, dt: float) -> tuple[np.ndarray, np.ndarray, np.ndar
     S_p = (dt * dt) * (k - j - 0.5) * mask
     t = (dt * np.arange(N)).astype(np.float64)
     return S_p, S_v, t
+
+
+def _maps_on(N: int, dt: float, *, dtype, device) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(torch.as_tensor(m, dtype=dtype, device=device)
+                 for m in rollout_matrices(N, dt))
+
+
+def rollout_maps(N: int, dt: float, dtype, device) -> tuple[Tensor, Tensor, Tensor]:
+    """(S_p, S_v, t) of :func:`rollout_matrices` cast to ``dtype`` on
+    ``device``, made there once (:mod:`.device_constants`; read only)."""
+    return device_constant(_maps_on, N, float(dt), dtype=dtype, device=device)
+
+
+def _scaled_maps_on(N: int, dt: float, mass: float, *, dtype, device) -> tuple[Tensor, Tensor]:
+    S_p, S_v, _ = rollout_maps(N, dt, dtype, device)
+    return S_p / mass, S_v / mass
+
+
+def scaled_maps(N: int, dt: float, mass: float, dtype, device) -> tuple[Tensor, Tensor]:
+    """(S_p / m, S_v / m): the maps of :func:`rollout_maps` divided by the
+    mass on ``device`` in ``dtype``, made there once (read only)."""
+    return device_constant(_scaled_maps_on, N, float(dt), float(mass), dtype=dtype,
+                           device=device)
 
 
 def _exclusive_prefix(x: Tensor) -> Tensor:
@@ -89,12 +114,7 @@ def rollout_linear(
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Closed-form rollout: thrusts (..., N, 3) -> (positions, velocities,
     accelerations), each (..., N, 3)."""
-    N = u.shape[-2]
-    S_p, S_v, t = rollout_matrices(N, float(dt))
-    kw = dict(dtype=u.dtype, device=u.device)
-    S_p = torch.as_tensor(S_p, **kw)
-    S_v = torch.as_tensor(S_v, **kw)
-    t = torch.as_tensor(t, **kw)
+    S_p, S_v, t = rollout_maps(u.shape[-2], dt, u.dtype, u.device)
     a = accel_from_thrust(u, mass, gravity_vec)
     vel = v0[..., None, :] + apply_steps(S_v, a)
     pos = p0[..., None, :] + t[:, None] * v0[..., None, :] + apply_steps(S_p, a)

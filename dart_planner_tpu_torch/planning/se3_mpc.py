@@ -26,11 +26,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.common.device import default_device, resolve_device
 from dart_planner_tpu_torch.common.metrics import span
 from dart_planner_tpu_torch.common.types import DroneState, Trajectory
 from dart_planner_tpu_torch.ops import costs, cuda_mpc, dynamics, so3
+from dart_planner_tpu_torch.ops.device_constants import device_constant, vector
 from dart_planner_tpu_torch.planning.base import BasePlanner
 
 Tensor = torch.Tensor
@@ -127,12 +127,11 @@ class SE3MPCConfig(NamedTuple):
         return [-mtt, -mtt, self.min_thrust], [mtt, mtt, self.max_thrust]
 
     def thrust_bounds(self, dtype=torch.float32, device="cpu") -> tuple[Tensor, Tensor]:
-        """Per-step (lb, ub) each (3,)."""
+        """Per-step (lb, ub) each (3,), made on ``device`` once per bound
+        values (:mod:`~dart_planner_tpu_torch.ops.device_constants`; read
+        only)."""
         lb, ub = self.thrust_bound_values()
-        return (
-            torch.tensor(lb, dtype=dtype, device=device),
-            torch.tensor(ub, dtype=dtype, device=device),
-        )
+        return vector(lb, dtype, device), vector(ub, dtype, device)
 
 
 class SolveResult(NamedTuple):
@@ -149,9 +148,8 @@ class SolveResult(NamedTuple):
 
 
 def _gravity(config: SE3MPCConfig, dtype, device) -> Tensor:
-    return frames.gravity_vector(
-        frames.WorldFrame.ENU, config.gravity, dtype=dtype, device=device
-    )
+    """ENU gravity (0, 0, -g) on ``device``, made there once (read only)."""
+    return vector((0.0, 0.0, -config.gravity), dtype, device)
 
 
 def effective_margins(config: SE3MPCConfig, obstacles: Tensor, goal_pt: Tensor) -> Tensor:
@@ -242,6 +240,24 @@ def _quadratic_hessian_inverse(config: SE3MPCConfig) -> np.ndarray:
     return torch.cholesky_inverse(torch.linalg.cholesky(H)).numpy().astype(np.float32)
 
 
+def _hessian_inverse_on(config: SE3MPCConfig, *, dtype, device) -> Tensor:
+    return torch.as_tensor(_quadratic_hessian_inverse(config), dtype=dtype, device=device)
+
+
+def _hessian_on(N: int, dt: float, mass: float, gravity: float, w: costs.CostWeights, *,
+                dtype, device) -> Tensor:
+    return torch.as_tensor(costs.quadratic_hessian(N, dt, mass, gravity, w), dtype=dtype,
+                           device=device)
+
+
+def _newton_maps_on(N: int, dt: float, mass: float, *, dtype, device) -> tuple:
+    """(S_p/m, S_v/m, their transposes, and the transposes of their squares)
+    for the plain Newton loop's matvec and Jacobi diagonal."""
+    Sp, Sv = dynamics.scaled_maps(N, dt, mass, dtype, device)
+    return (Sp, Sv, Sp.T.contiguous(), Sv.T.contiguous(), (Sp * Sp).T.contiguous(),
+            (Sv * Sv).T.contiguous())
+
+
 def _quadratic_weights(config: SE3MPCConfig) -> costs.CostWeights:
     """The cost weights with every hinge zeroed (the QP part only)."""
     return config.weights._replace(
@@ -263,17 +279,16 @@ def initialize_thrusts(
     N = config.prediction_horizon
     batch = prob.p0.shape[:-1]
     dtype, device = prob.p0.dtype, prob.p0.device
-    hover = torch.tensor([0.0, 0.0, config.hover_thrust], dtype=dtype, device=device)
-    u_h = hover.expand(batch + (N, 3))
+    u_h = vector((0.0, 0.0, config.hover_thrust), dtype, device).expand(batch + (N, 3))
     if (mode or config.cold_start) == "hover":
-        return u_h.contiguous()
+        # a copy even where the expanded view is already contiguous (N=1, no
+        # batch): the caller owns the plan, the hover vector is shared
+        return u_h.clone(memory_format=torch.contiguous_format)
     gvec = _gravity(config, dtype, device)
     g = costs.condensed_grad(
         u_h, prob, _quadratic_weights(config), config.dt, config.mass, gvec
     )
-    Hinv = torch.as_tensor(
-        _quadratic_hessian_inverse(config), dtype=dtype, device=device
-    )
+    Hinv = device_constant(_hessian_inverse_on, config, dtype=dtype, device=device)
     u_qp = u_h - dynamics.apply_steps(Hinv, g)
     lb, ub = config.thrust_bounds(dtype, device)
     return torch.clamp(u_qp, lb, ub)
@@ -318,25 +333,15 @@ def _newton_iterate(
     lb, ub = config.thrust_bounds(dtype, device)
     batch = u.shape[:-2]
 
-    H_axis = torch.as_tensor(
-        costs.quadratic_hessian(N, dt, mass, config.gravity, w), **kw
-    )
+    H_axis = device_constant(_hessian_on, N, dt, mass, config.gravity, w, **kw)
     diag_quad = torch.diagonal(H_axis)[:, None].expand(N, 3)
-    S_p_np, S_v_np, _ = dynamics.rollout_matrices(N, float(dt))
-    Sp = torch.as_tensor(S_p_np, **kw) / mass
-    Sv = torch.as_tensor(S_v_np, **kw) / mass
-    SpT = Sp.T.contiguous()
-    SvT = Sv.T.contiguous()
-    Sp2T = (Sp * Sp).T.contiguous()
-    Sv2T = (Sv * Sv).T.contiguous()
+    Sp, Sv, SpT, SvT, Sp2T, Sv2T = device_constant(_newton_maps_on, N, float(dt), mass, **kw)
     use_vel_hinge = w.velocity_bound > 0.0
     use_penalties = (
         use_obstacles or w.ground > 0.0 or use_vel_hinge
         or w.tilt > 0.0 or w.thrust_norm > 0.0
     )
-    alphas = torch.tensor(config.line_search_alphas, **kw).reshape(
-        (-1,) + (1,) * u.ndim
-    )
+    alphas = vector(config.line_search_alphas, dtype, device).reshape((-1,) + (1,) * u.ndim)
 
     def cost_fn(uu):
         return costs.condensed_cost(uu, prob, w, dt, mass, gvec)

@@ -38,6 +38,7 @@ from dart_planner_tpu_torch.common.metrics import span
 from dart_planner_tpu_torch.common.types import DroneState
 from dart_planner_tpu_torch.control import geometric
 from dart_planner_tpu_torch.ops import costs, cuda_rollout
+from dart_planner_tpu_torch.ops.device_constants import vector
 from dart_planner_tpu_torch.perception.mapper import unit_linspace
 from dart_planner_tpu_torch.planning import se3_mpc
 from dart_planner_tpu_torch.sim import physics as phys
@@ -294,8 +295,8 @@ def simulate_episode(
 
         rb = phys.RigidBodyState.from_drone_state(state0)
         ctrl = geometric.ControllerState.zeros(config.control, batch_shape, dtype, device)
-        hover = torch.tensor([0.0, 0.0, mpc.hover_thrust], **kw)
-        u_warm = hover.expand(batch_shape + (mpc.prediction_horizon, 3))
+        u_warm = vector((0.0, 0.0, mpc.hover_thrust), dtype, device).expand(
+            batch_shape + (mpc.prediction_horizon, 3))
         t = state0.timestamp.to(dtype)
         n_sub = config.substeps_per_plan
 

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from dart_planner_tpu_torch import DroneState
+from dart_planner_tpu_torch.common.metrics import get_metrics
 from dart_planner_tpu_torch.ops import cuda_mpc, cuda_rollout, so3
 from dart_planner_tpu_torch.planning import se3_mpc
 from dart_planner_tpu_torch.sim import ClosedLoopConfig, closed_loop
@@ -228,10 +229,10 @@ def test_setpoint_weights_are_copied_once_and_keep_their_values():
     rng = np.random.default_rng(4)
     plan = [torch.as_tensor(rng.normal(0, 2, (5, 20, 3)).astype(np.float32))
             for _ in range(3)]
-    hits = cuda_rollout._lerp_tensor.cache_info().hits
     first = cuda_rollout.setpoints_from_plan(*plan, 40, 0.0025, 0.1)
+    uploads = get_metrics().all_summaries()["counters"].get("device_constant_uploads", 0)
     again = cuda_rollout.setpoints_from_plan(*plan, 40, 0.0025, 0.1)
-    assert cuda_rollout._lerp_tensor.cache_info().hits >= hits + 1
+    assert get_metrics().all_summaries()["counters"].get("device_constant_uploads", 0) == uploads
     W = cuda_rollout._lerp_tensor(40, 0.0025, 0.1, 20, torch.float32, torch.device("cpu"))
     assert W is cuda_rollout._lerp_tensor(40, 0.0025, 0.1, 20, torch.float32,
                                           torch.device("cpu"))

@@ -16,7 +16,9 @@ benchmark's readers of them, on the CPU.
   for an empty context and its formula's value for a filled manager.
 
 On the card (marked ``cuda``): one upload from pageable host memory inside
-a span under the profiler counts one sync.
+a span under the profiler counts one sync; a warm two-phase solve, its
+extraction and a short episode through B1 and B2 make none (sync debug mode
+"error") and no device constant.
 """
 
 import importlib.util
@@ -380,3 +382,67 @@ def test_one_pageable_upload_in_a_span_counts_one_sync_on_the_card(fresh):
             torch.ones(8, device="cuda").add_(1.0)  # a launch, no sync
     assert fresh.span_counts()["syncs"] == {"t.upload": 1}
     assert torch.cuda.get_sync_debug_mode() == mode
+
+
+def _uploads() -> int:
+    return get_metrics().all_summaries()["counters"].get("device_constant_uploads", 0)
+
+
+@pytest.mark.cuda
+def test_a_warm_replan_and_episode_make_no_sync_on_the_card(fresh):
+    """Once warm, a two-phase solve at B=4096 with spheres, warm-started, its
+    extraction and a 3-replan episode through B1 and B2 with given wind and
+    noise run under sync debug mode "error" without raising, and make no
+    device constant: every constant of the solve and the loop was made on
+    the card once, before. ``"cuda"`` and ``"cuda:0"`` name one entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B1 and B2 and the sync debug mode")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(20)
+    B, cfg = 4096, se3_mpc.SE3MPCConfig()
+    obs = np.concatenate([rng.normal(0, 3, (B, 4, 3)) + [5, 0, 3],
+                          rng.uniform(0.3, 1.0, (B, 4, 1))], -1)
+    p0 = rng.normal(0, 1, (B, 3)) + [0, 0, 3]
+    goal = rng.normal(0, 1, (B, 3)) + [10, 0, 3]
+    v0, stamps = rng.normal(0, 0.5, (B, 3)), rng.uniform(0, 5, B)
+    obs, p0, goal, v0, stamps = (torch.tensor(x, dtype=torch.float32, device=dev)
+                                 for x in (obs, p0, goal, v0, stamps))
+    loop_cfg = closed_loop.ClosedLoopConfig(num_replans=3, sense_radius=3.0,
+                                            unknown_speed_cap=2.0)
+    state0 = DroneState.zeros((B,), device=dev).replace(position=p0)
+    wind = torch.tensor(rng.normal(1.0, 0.5, (B, 3)), dtype=torch.float32, device=dev)
+    noise = torch.tensor(rng.normal(0, 0.02, (3, B, 6)), dtype=torch.float32, device=dev)
+    corridor = torch.tensor(rng.uniform(0, 1, (B, 16)), dtype=torch.float32, device=dev)
+
+    def replan(u_prev):
+        prob = se3_mpc.make_problem(p0, v0, goal, obstacles=obs, config=cfg)
+        res = se3_mpc.solve(cfg, prob, se3_mpc.shift_warm_start(cfg, u_prev))
+        traj = se3_mpc.extract_trajectory(cfg, res, stamps)
+        ep = closed_loop.simulate_episode(
+            loop_cfg, None, state0, goal, obstacles=obs[0], method="auto",
+            true_obstacles=obs[0, :, :], corridor_observed=corridor, wind=wind,
+            noise=noise)
+        return res, traj, ep
+
+    cold = se3_mpc.solve(cfg, se3_mpc.make_problem(p0, v0, goal, obstacles=obs, config=cfg))
+    replan(cold.thrusts)  # warm: the libraries, the allocator, every constant
+    torch.cuda.synchronize()
+    launches = cuda_mpc.LAUNCHES
+    uploads = _uploads()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, traj, ep = replan(cold.thrusts)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert _uploads() == uploads
+    assert cuda_mpc.LAUNCHES == launches + 2 + loop_cfg.num_replans
+    for x in (res.thrusts, res.cost, traj.attitudes, ep.final_position):
+        assert bool(torch.isfinite(x).all())
+    g = se3_mpc._gravity(cfg, torch.float32, "cuda")
+    assert se3_mpc._gravity(cfg, torch.float32, f"cuda:{dev.index}") is g
+    for a, b in zip(cfg.thrust_bounds(device="cuda"),
+                    cfg.thrust_bounds(device=f"cuda:{dev.index}")):
+        assert a is b
+    assert _uploads() == uploads
