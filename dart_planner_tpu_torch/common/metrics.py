@@ -46,6 +46,8 @@ class MetricsManager:
             lambda: deque(maxlen=max_samples)
         )
         self._counters: Dict[str, int] = defaultdict(int)
+        # counters with labels: name -> {sorted (label, value) pairs: count}
+        self._series: Dict[str, Dict[tuple, int]] = defaultdict(lambda: defaultdict(int))
         self._lock = threading.Lock()
         # tier 1 of the spans, apart from the histories: calls and host
         # syncs by span while the profiler records
@@ -60,9 +62,21 @@ class MetricsManager:
         with self._lock:
             self._samples[name].append(float(value))
 
-    def increment(self, name: str, by: int = 1) -> None:
+    def increment(self, name: str, by: int = 1, labels: Optional[dict] = None) -> None:
+        """Add ``by`` to the counter ``name``, or, with ``labels`` (label ->
+        value), to its series of those labels (:meth:`series`)."""
         with self._lock:
-            self._counters[name] += by
+            if labels:
+                key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+                self._series[name][key] += by
+            else:
+                self._counters[name] += by
+
+    def series(self, name: str) -> Dict[tuple, int]:
+        """The labelled counter ``name``: ``{((label, value), ...): count}``,
+        the labels sorted by name. Counts only rise (until :meth:`reset`)."""
+        with self._lock:
+            return dict(self._series.get(name, {}))
 
     @contextlib.contextmanager
     def timer(self, name: str) -> Iterator[None]:
@@ -113,6 +127,7 @@ class MetricsManager:
         with self._lock:
             self._samples.clear()
             self._counters.clear()
+            self._series.clear()
             self._span_calls.clear()
             self._span_syncs.clear()
 
@@ -201,11 +216,17 @@ class MetricsManager:
         lines = []
         with self._lock:
             counters = dict(self._counters)
+            series = {name: dict(s) for name, s in self._series.items()}
             names = list(self._samples)
         for name, value in sorted(counters.items()):
             m = f"{prefix}_{sanitize(name)}_total"
             lines.append(f"# TYPE {m} counter")
             lines.append(f"{m} {value}")
+        for name, by_labels in sorted(series.items()):
+            m = f"{prefix}_{sanitize(name)}_total"
+            lines.append(f"# TYPE {m} counter")
+            for key, value in sorted(by_labels.items()):
+                lines.append(f"{m}{_labels_text(key)} {value}")
         for name in sorted(names):
             s = self.summary(name)
             if s is None:
@@ -249,6 +270,11 @@ class MetricsManager:
         return server
 
 
+def _labels_text(key: tuple) -> str:
+    """A series' labels as Prometheus writes them: ``{a="x",b="y"}``."""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in key) + "}"
+
+
 _global = MetricsManager()
 
 
@@ -263,9 +289,10 @@ class span:
     ``torch.profiler.record_function`` range of that name and counts the
     span's calls and the host syncs made while it is the innermost open
     span. ``@span("mpc.finalize")`` on a function opens a fresh span of
-    that name around each call."""
+    that name around each call. ``ms`` holds the milliseconds recorded
+    when the span closed."""
 
-    __slots__ = ("name", "_t0", "_rf")
+    __slots__ = ("name", "ms", "_t0", "_rf")
 
     def __init__(self, name: str):
         self.name = name
@@ -277,10 +304,10 @@ class span:
         return self
 
     def __exit__(self, *exc) -> bool:
-        ms = (time.perf_counter_ns() - self._t0) * 1e-6
+        self.ms = (time.perf_counter_ns() - self._t0) * 1e-6
         if self._rf is not None:
             _global._exit_traced(self._rf)
-        _global.record(self.name, ms)
+        _global.record(self.name, self.ms)
         return False
 
     def __call__(self, fn):

@@ -7,7 +7,9 @@ in one launch and returns ``(thrusts, min_improvement, positions,
 velocities, cost)`` with the JAX package's shapes. For tensors on a CUDA
 device it launches the kernel or raises; only for tensors on the CPU does it
 run :func:`solve_thrusts_plain`, the plain PyTorch Newton loop with the same
-signature. ``LAUNCHES`` counts the kernel's launches.
+signature. ``LAUNCHES`` counts the kernel's launches; the global metrics
+counter ``b1_launches`` counts them by the solve's pass and the kernel's
+arm (:func:`run_library`).
 
 The kernel applies the rollout maps S_p/m, S_v/m, their transposes and the
 quadratic Hessian as warp scans (``csrc/mpc_solve.cu``;
@@ -172,10 +174,13 @@ def exact_cost(config, prob: costs.Problem, u: torch.Tensor) -> torch.Tensor:
 
 
 def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
-                        use_obstacles: bool = True) -> tuple:
+                        use_obstacles: bool = True, solve_pass: str = "phase1") -> tuple:
     """Run the fused solve; returns ``(thrusts, min_improvement, positions,
     velocities, cost)``: thrusts/positions/velocities have ``u_init``'s
-    shape, min_improvement and cost are batch-shaped.
+    shape, min_improvement and cost are batch-shaped. ``solve_pass`` names
+    the pass of ``se3_mpc.solve`` that launches it (``"phase1"``,
+    ``"tail"``, ``"restart"``) for the launch counter and the wrapper's
+    span histories (:func:`run_library`).
 
     Accepts any leading batch shape; shared Problem fields (one goal, one
     obstacle set for the batch) are broadcast to contiguous per-scenario
@@ -198,11 +203,11 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     # attribute is set per device
     with torch.cuda.device(device):
         return run_library(_library, config, prob, u_init, use_obstacles,
-                           torch.cuda.current_stream(device).cuda_stream)
+                           torch.cuda.current_stream(device).cuda_stream, solve_pass)
 
 
 def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
-                use_obstacles: bool, stream) -> tuple:
+                use_obstacles: bool, stream, solve_pass: str = "phase1") -> tuple:
     """One launch through ``library()``, a library with the C interface of
     ``csrc/mpc_solve.cu``, on ``stream``: the inputs flattened to contiguous
     float32 per-scenario copies, the outputs allocated beside them and
@@ -211,14 +216,23 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     does not fit the card's shared memory), a float32 scratch of its size.
     Raises if the launch fails; an empty batch launches nothing. A launch on
     a CUDA stream adds one to ``LAUNCHES``; ``stream=None`` (a library built
-    for the CPU) does not. Timed whole as the span ``b1.wrapper``."""
-    from dart_planner_tpu_torch.common.metrics import span  # common shares ops' layer
+    for the CPU) does not. Every launch adds one, on the host, to the global
+    metrics counter ``b1_launches`` under the labels ``pass`` (``solve_pass``),
+    ``steps`` (horizon steps a lane, B1's arm: 1-4 are compiled arms, from 5
+    on one arm reads the count at run time) and ``arena`` (``"global"`` where the
+    warps' arena lies in the global scratch, else ``"shared"``). Timed whole
+    as the span ``b1.wrapper``, whose milliseconds also go into the history
+    ``b1.wrapper.<solve_pass>``."""
+    from dart_planner_tpu_torch.common.metrics import get_metrics, span  # common shares ops' layer
 
-    with span("b1.wrapper"):
-        return _run_library(library, config, prob, u_init, use_obstacles, stream)
+    wrapper = span("b1.wrapper")
+    with wrapper:
+        out = _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass)
+    get_metrics().record(f"b1.wrapper.{solve_pass}", wrapper.ms)
+    return out
 
 
-def _run_library(library, config, prob, u_init, use_obstacles, stream) -> tuple:
+def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass) -> tuple:
     global LAUNCHES
     device = u_init.device
     N = config.prediction_horizon
@@ -271,6 +285,11 @@ def _run_library(library, config, prob, u_init, use_obstacles, stream) -> tuple:
             )
         if stream is not None:
             LAUNCHES += 1
+        from dart_planner_tpu_torch.common.metrics import get_metrics  # common shares ops' layer
+
+        get_metrics().increment("b1_launches", labels={
+            "pass": solve_pass, "steps": lane_stride(N) // 32,
+            "arena": "global" if n_scratch else "shared"})
 
     def rows(x):
         return x.reshape(batch_shape + (N, 3))

@@ -518,14 +518,17 @@ def _solve_once(
     use_obstacles: bool,
     method: str,
     with_grad: bool = True,
+    solve_pass: str = "phase1",
 ) -> SolveResult:
-    """One fixed-budget solve on the selected path (no tail refinement)."""
+    """One fixed-budget solve on the selected path (no tail refinement);
+    ``solve_pass`` names the pass of :func:`solve` for kernel B1's launch
+    counter."""
     if method == "torch":
         return solve_se3_mpc(config, prob, u_init, use_obstacles, with_grad=with_grad)
     if u_init is None:
         u_init = initialize_thrusts(config, prob)
     u, min_improvement, pos, vel, cost = cuda_mpc.solve_thrusts_fused(
-        config, prob, u_init, use_obstacles=use_obstacles
+        config, prob, u_init, use_obstacles=use_obstacles, solve_pass=solve_pass
     )
     return _finalize(
         config, prob, u, min_improvement, with_grad=with_grad,
@@ -584,12 +587,14 @@ def _compact_resolve(
     slot: Tensor,
     use_obstacles: bool,
     method: str,
+    solve_pass: str,
 ) -> SolveResult:
     """Re-solve the worst cohort in a compact batch and merge improvements.
 
     ``slot`` is a permutation ranking scenarios re-solve-first (slot i < C
     means scenario i is in the cohort). Results merge back only where the
-    re-solved cost is no worse; ``converged`` ORs the two stalls."""
+    re-solved cost is no worse; ``converged`` ORs the two stalls.
+    ``solve_pass`` (``"tail"``, ``"restart"``) names the pass."""
     B = res_f.cost.shape[0]
     idx = torch.empty_like(slot)
     idx[slot] = torch.arange(B, dtype=slot.dtype, device=slot.device)
@@ -600,7 +605,8 @@ def _compact_resolve(
 
     prob_t = costs.Problem(*[take(x) for x in prob_f])
     ref = _solve_once(
-        cfg_c, prob_t, u_start_f[idx], use_obstacles, method, with_grad=False
+        cfg_c, prob_t, u_start_f[idx], use_obstacles, method, with_grad=False,
+        solve_pass=solve_pass,
     )
     ok = ref.cost <= res_f.cost[idx]
     safe_slot = torch.clamp(slot, max=C - 1)
@@ -663,7 +669,7 @@ def _tail_refine(
     rank_c = torch.cumsum(1 - unconv, 0) - 1
     slot = torch.where(unconv == 1, rank_u, n_unconv + rank_c)
     out = _compact_resolve(
-        cfg_t, prob_f, res_f, res_f.thrusts, C, slot, use_obstacles, method
+        cfg_t, prob_f, res_f, res_f.thrusts, C, slot, use_obstacles, method, "tail"
     )
     return _unflatten(out, batch_shape)
 
@@ -706,7 +712,7 @@ def _perturbed_restart(
         u_cold.shape, generator=gen, dtype=u_cold.dtype, device=u_cold.device
     )
     out = _compact_resolve(
-        cfg_r, prob_f, res_f, u_cold + noise, C, slot, use_obstacles, method
+        cfg_r, prob_f, res_f, u_cold + noise, C, slot, use_obstacles, method, "restart"
     )
     return _unflatten(out, batch_shape)
 

@@ -5,6 +5,9 @@ benchmark's readers of them, on the CPU.
   (tier 0) by a two-phase solve with its tail and restart, by an episode
   through the packed tick block's plain version, and ``b1.wrapper`` by a
   launch of kernel B1's emulated library.
+- The counter ``b1_launches`` rises once under each pass of a two-phase
+  solve through the emulated B1, labelled with the arm (steps a lane, the
+  arena), and ``b1.wrapper.<pass>`` holds each pass's wrapper time.
 - Without the profiler no span opens a ``record_function`` range; under a
   CPU ``torch.profiler`` each opens one of its name, nested as the stages
   nest, counts its calls, and counts the warnings with torch's sync message
@@ -18,7 +21,8 @@ benchmark's readers of them, on the CPU.
 On the card (marked ``cuda``): one upload from pageable host memory inside
 a span under the profiler counts one sync; a warm two-phase solve, its
 extraction and a short episode through B1 and B2 make none (sync debug mode
-"error") and no device constant.
+"error") and no device constant; a warm two-phase solve at N = 20 and 100
+adds one phase-1 and one tail launch to ``b1_launches`` without a sync.
 """
 
 import importlib.util
@@ -155,6 +159,50 @@ def test_b1_wrapper_is_recorded_through_the_emulated_library(fresh, emulated_lib
     assert [e.name for e in _names(prof.events())] == ["b1.wrapper"]
     assert fresh.span_counts()["calls"] == {"b1.wrapper": 1}
     assert len(fresh.history("b1.wrapper")) == 2
+
+
+def _through_the_emulated_b1(monkeypatch, library):
+    """``se3_mpc.solve`` on CPU tensors through the emulated kernel B1, as on
+    the card: every pass's launch goes through ``run_library``."""
+    def fused(config, prob, u_init, use_obstacles=True, solve_pass="phase1"):
+        return cuda_mpc.run_library(lambda: library, config, prob, u_init, use_obstacles,
+                                    None, solve_pass)
+
+    monkeypatch.setattr(se3_mpc, "resolve_method", lambda prob, method: "cuda")
+    monkeypatch.setattr(cuda_mpc, "solve_thrusts_fused", fused)
+
+
+@pytest.mark.parametrize("N,steps", [(20, 1), (100, 4)])
+def test_b1_launches_count_each_pass_of_a_two_phase_solve_at_its_arm(
+        fresh, monkeypatch, emulated_library, N, steps):
+    """A two-phase solve launches B1 once in phase 1 and once in the tail:
+    ``b1_launches`` rises by one under each pass, at N's steps a lane and
+    the shared arena, on ``/metrics`` too; the wrapper's milliseconds go
+    into ``b1.wrapper`` and ``b1.wrapper.<pass>`` alike. A warm replan
+    (shifted warm start, solve, extraction) counts no sync under the
+    profiler."""
+    _through_the_emulated_b1(monkeypatch, emulated_library)
+    config = se3_mpc.SE3MPCConfig(prediction_horizon=N, max_iterations=1, cg_iterations=2,
+                                  gn_warmup_iterations=1, tail_iterations=1,
+                                  tail_cg_iterations=2)
+    prob = se3_mpc.make_problem(
+        torch.tensor([[0.0, 0.0, 2.0], [0.5, 0.0, 2.5], [0.0, 0.5, 3.0], [1.0, 1.0, 2.0]]),
+        torch.zeros(4, 3), torch.tensor([5.0, 0.0, 3.0]),
+        obstacles=torch.tensor([[2.5, 0.0, 3.0, 0.5]]), config=config, device="cpu")
+    res = se3_mpc.solve(config, prob)
+    key = {p: (("arena", "shared"), ("pass", p), ("steps", str(steps)))
+           for p in ("phase1", "tail")}
+    assert fresh.series("b1_launches") == {key["phase1"]: 1, key["tail"]: 1}
+    assert fresh.history("b1.wrapper") == (fresh.history("b1.wrapper.phase1")
+                                           + fresh.history("b1.wrapper.tail"))
+    text = fresh.prometheus_exposition()
+    assert (f'dart_b1_launches_total{{arena="shared",pass="tail",steps="{steps}"}} 1'
+            in text)
+    with profile(activities=[ProfilerActivity.CPU]):
+        warm = se3_mpc.solve(config, prob, se3_mpc.shift_warm_start(config, res.thrusts))
+        se3_mpc.extract_trajectory(config, warm, 0.0)
+    assert fresh.span_counts()["syncs"] == {}
+    assert fresh.series("b1_launches") == {key["phase1"]: 2, key["tail"]: 2}
 
 
 def test_no_profiler_range_without_the_profiler(fresh, monkeypatch):
@@ -446,3 +494,39 @@ def test_a_warm_replan_and_episode_make_no_sync_on_the_card(fresh):
                     cfg.thrust_bounds(device=f"cuda:{dev.index}")):
         assert a is b
     assert _uploads() == uploads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,steps", [(20, 1), (100, 4)])
+def test_b1_launches_on_the_card_count_each_pass_without_a_sync(fresh, N, steps):
+    """On the card, a warm two-phase solve at B=4096 under sync debug mode
+    "error" raises nothing and adds one phase-1 and one tail launch to
+    ``b1_launches``, at N's steps a lane in shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel B1 and the sync debug mode")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(21)
+    B, cfg = 4096, se3_mpc.SE3MPCConfig(prediction_horizon=N)
+    obs = np.concatenate([rng.normal(0, 3, (B, 4, 3)) + [5, 0, 3],
+                          rng.uniform(0.3, 1.0, (B, 4, 1))], -1)
+    p0, v0 = rng.normal(0, 1, (B, 3)) + [0, 0, 3], rng.normal(0, 0.5, (B, 3))
+    goal = rng.normal(0, 1, (B, 3)) + [10, 0, 3]
+    obs, p0, v0, goal = (torch.tensor(x, dtype=torch.float32, device=dev)
+                         for x in (obs, p0, v0, goal))
+    prob = se3_mpc.make_problem(p0, v0, goal, obstacles=obs, config=cfg)
+    cold = se3_mpc.solve(cfg, prob)
+    se3_mpc.solve(cfg, prob, se3_mpc.shift_warm_start(cfg, cold.thrusts))  # warm
+    torch.cuda.synchronize()
+    before = fresh.series("b1_launches")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = se3_mpc.solve(cfg, prob, se3_mpc.shift_warm_start(cfg, cold.thrusts))
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    after = fresh.series("b1_launches")
+    rose = {dict(k)["pass"]: (dict(k)["steps"], dict(k)["arena"], n - before.get(k, 0))
+            for k, n in after.items() if n > before.get(k, 0)}
+    assert rose == {"phase1": (str(steps), "shared", 1), "tail": (str(steps), "shared", 1)}
+    assert bool(torch.isfinite(res.cost).all())
