@@ -18,8 +18,13 @@
 //     ties);
 //   - the running minimum of the relative improvement (the ftol input),
 //     restarted at +inf when the full-curvature stage begins;
-// then a final exact rollout and cost pass. Everything runs in exact fp32
-// (the TPU kernel ran the CG matvec and the line-search deltas in bf16).
+// then a final exact rollout and cost pass and, where the launch asks for it,
+// the projected-gradient norm ||clamp(u - g, lb, ub) - u|| of the final
+// iterate (the gradient code of a round's start, without its curvature: a
+// sphere pass, a pull-back and a butterfly; 1-2% of a 12-round launch at
+// N = 20 and 100 on an H100, by CUDA events against the launch without
+// it). Everything runs in exact fp32 (the TPU kernel ran the CG matvec and
+// the line-search deltas in bf16).
 //
 // Layout: one warp per scenario, lane k = horizon step k; a lane holds S =
 // ceil(N / 32) steps, k, k+32, k+64, ..., in slots 0..S-1, so any N >= 1
@@ -99,8 +104,9 @@
 // thread has, so the CG vectors and Hessian blocks would spill in every CG
 // step. From S=3 on the 27 read-mostly floats a step (a round's curvature
 // blocks and free, 21; the goal and c0, 6) live in the warp's shared
-// memory instead: ptxas reads 167 registers at S=3 and 218 at S=4, 0 spill
-// bytes (an H100, CUDA 12.8), for 27 x 4 B x 32 x S of shared memory a
+// memory instead: ptxas reads 167 registers at S=3 and 217 at S=4 (and,
+// with the final norm's pass in the kernel, 123 at S=1 and 190 at S=2), 0
+// spill bytes (an H100, CUDA 12.8), for 27 x 4 B x 32 x S of shared memory a
 // warp (10.4 KB at S=3, 13.8 KB at S=4; a block of 2 warps 28 KB, 4
 // blocks an SM 111 KB of the 228 KB). The work grows with N (each scan's
 // shuffles with S, every other pass with the steps), and so does each
@@ -564,8 +570,10 @@ constexpr int kRoundFields =
     kCurvFields + 6 +
     cmax(cmax(12 + kRolloutFields, 6 + kDiagFields), cmax(18 + kMatvecFields, 27 + kRolloutFields));
 // the kernel: the goal, c0, diag(H) and the thrusts, then a Newton round or
-// the final rollout (pos, vel)
-constexpr int kDynFields = 3 + 3 + 1 + 3 + cmax(kRoundFields, 6 + kRolloutFields);
+// the final rollout (pos, vel) and the final iterate's gradient (gpos,
+// gvel, g, the pull-back)
+constexpr int kDynFields =
+    3 + 3 + 1 + 3 + cmax(kRoundFields, 6 + cmax(kRolloutFields, 9 + kMapFields));
 static_assert(kDynFields == 73, "the header comment and PERF.md state 73 floats a step");
 
 // Floats of a warp's arena at S steps a lane (n = ceil(N / 32)): none at
@@ -632,50 +640,47 @@ B1_UNROLL_SLOTS
   }
 }
 
-// One Newton round; updates u and min_imp in place.
-template <int S>
-__device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int lane,
-                                             float vmax, bool full, const Steps<S, 3>& c0,
-                                             const float (&v0)[3], const Steps<S, 3>& goal,
-                                             const Steps<S, 1, S == kDyn>& dq,
-                                             const float* __restrict__ alphas, Arena ar,
-                                             Vec<S>& u, float& min_imp, int cg_iters) {
-  const int N = P.N, n = slots<S>(u);
-  const float cv = P.dt * P.inv_m, cp = P.dt * cv;
-  const float wq = 2.f * (P.w_a * P.inv_m * P.inv_m + P.w_T);
-  Curv<S> c = take_curv<S>(ar);
-  Vec<S> g = vec<S>(ar), dg = vec<S>(ar);
-  float cur;
-  {
-    Arena blk = ar;
-    Vec<S> pos = vec<S>(blk), vel = vec<S>(blk), gpos = vec<S>(blk), gvel = vec<S>(blk);
-    rollout<S>(P, lane, c0, v0, u, pos, vel, blk);
-
-    // physical-space gradient and curvature blocks
+// The gradient dJ/du at u, in two halves that a Newton round's start and
+// the final iterate's norm share. A round asks for its curvature too
+// (Curvature): the blocks into *c and the thrust-space blocks' Jacobi
+// diagonal into *dg, with the full hinge curvature if `full`; the final
+// iterate asks for none, and c and dg may be null.
+//
+// First half: the physical-space gradient at u's rollout (pos, vel) into
+// gpos and gvel (position and goal, velocity, spheres, ground, velocity
+// envelope), zero at k >= N.
+template <int S, bool Curvature>
+__device__ __forceinline__ void physical_gradient(const MpcParams& P, Spheres sp, int lane,
+                                                  float vmax, bool full,
+                                                  const Steps<S, 3>& goal, const Vec<S>& pos,
+                                                  const Vec<S>& vel, Vec<S>& gpos,
+                                                  Vec<S>& gvel, Curv<S>* c, Vec<S>* dg) {
+  const int N = P.N, n = slots<S>(pos);
 B1_UNROLL_SLOTS
-    for (int s = 0; s < n; ++s) {
-      const int k = lane + 32 * s;
-      const bool valid = k < N;
-      const float wp = step_weight(P, k);
-      // the step's curvature blocks, summed here and stored once
-      float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, hv[3] = {0.f, 0.f, 0.f};
+  for (int s = 0; s < n; ++s) {
+    const int k = lane + 32 * s;
+    const bool valid = k < N;
+    const float wp = step_weight(P, k);
+    // the step's curvature blocks, summed here and stored once
+    float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, hv[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        gpos[s][a] = valid ? 2.f * wp * (pos[s][a] - goal[s][a]) : 0.f;
-        gvel[s][a] = valid ? 2.f * P.w_v * vel[s][a] : 0.f;
-        dg[s][a] = 0.f;
-      }
-      if (valid && P.use_obstacles) {
+    for (int a = 0; a < 3; ++a) {
+      gpos[s][a] = valid ? 2.f * wp * (pos[s][a] - goal[s][a]) : 0.f;
+      gvel[s][a] = valid ? 2.f * P.w_v * vel[s][a] : 0.f;
+      if constexpr (Curvature) (*dg)[s][a] = 0.f;
+    }
+    if (valid && P.use_obstacles) {
 #pragma unroll 4
-        for (int o = 0; o < sp.n; ++o) {
-          const float* ob = sp.s + 4 * o;
-          const float dx = pos[s][0] - ob[0], dy = pos[s][1] - ob[1], dz = pos[s][2] - ob[2];
-          const float d = sqrtf(dx * dx + dy * dy + dz * dz + 1e-9f);
-          const float viol = fmaxf(ob[3] - d, 0.f);
-          const float coef = 2.f * P.w_obs * viol / d;
-          gpos[s][0] -= coef * dx;
-          gpos[s][1] -= coef * dy;
-          gpos[s][2] -= coef * dz;
+      for (int o = 0; o < sp.n; ++o) {
+        const float* ob = sp.s + 4 * o;
+        const float dx = pos[s][0] - ob[0], dy = pos[s][1] - ob[1], dz = pos[s][2] - ob[2];
+        const float d = sqrtf(dx * dx + dy * dy + dz * dz + 1e-9f);
+        const float viol = fmaxf(ob[3] - d, 0.f);
+        const float coef = 2.f * P.w_obs * viol / d;
+        gpos[s][0] -= coef * dx;
+        gpos[s][1] -= coef * dy;
+        gpos[s][2] -= coef * dz;
+        if constexpr (Curvature) {
           const float act = ob[3] > d ? 2.f * P.w_obs : 0.f;
           float inv_d2;
           if (full) {
@@ -696,38 +701,52 @@ B1_UNROLL_SLOTS
           h[5] += inv_d2 * dy * dz;
         }
       }
-      if (valid && P.use_ground) {
-        const float gv = fmaxf(P.z_min - pos[s][2], 0.f);
-        gpos[s][2] -= 2.f * P.w_g * gv;
-        h[2] += (pos[s][2] < P.z_min) ? 2.f * P.w_g : 0.f;
-      }
-      if (valid && P.use_vel_hinge) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float v = vel[s][a];
-          const float vv = fmaxf(fabsf(v) - vmax, 0.f);
-          const float sgn = (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
-          gvel[s][a] += 2.f * P.w_vb * sgn * vv;
-          hv[a] = (fabsf(v) > vmax) ? 2.f * P.w_vb : 0.f;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 6; ++a) c.h[s][a] = h[a];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) c.hv[s][a] = hv[a];
     }
-    // the line search's reference: the current iterate's cost
-    cur = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
-    // pull back to thrust space
-    pullback<S>(gpos, gvel, cp, cv, lane, g, blk);
+    if (valid && P.use_ground) {
+      const float gv = fmaxf(P.z_min - pos[s][2], 0.f);
+      gpos[s][2] -= 2.f * P.w_g * gv;
+      h[2] += (pos[s][2] < P.z_min) ? 2.f * P.w_g : 0.f;
+    }
+    if (valid && P.use_vel_hinge) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float v = vel[s][a];
+        const float vv = fmaxf(fabsf(v) - vmax, 0.f);
+        const float sgn = (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
+        gvel[s][a] += 2.f * P.w_vb * sgn * vv;
+        hv[a] = (fabsf(v) > vmax) ? 2.f * P.w_vb : 0.f;
+      }
+    }
+    if constexpr (Curvature) {
+#pragma unroll
+      for (int a = 0; a < 6; ++a) c->h[s][a] = h[a];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c->hv[s][a] = hv[a];
+    }
   }
+}
+
+// Second half: g = the physical-space gradient pulled back to thrust space
+// plus the thrust-space terms at u (acceleration, effort, tilt, thrust
+// norm), zero at k >= N.
+template <int S, bool Curvature>
+__device__ __forceinline__ void thrust_gradient(const MpcParams& P, int lane, bool full,
+                                                const Vec<S>& u, const Vec<S>& gpos,
+                                                const Vec<S>& gvel, Vec<S>& g, Curv<S>* c,
+                                                Vec<S>* dg, Arena ar) {
+  const int N = P.N, n = slots<S>(u);
+  const float cv = P.dt * P.inv_m, cp = P.dt * cv;
+  // pull back to thrust space
+  pullback<S>(gpos, gvel, cp, cv, lane, g, ar);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
     const int k = lane + 32 * s;
+    if constexpr (Curvature) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) c.tl[s][a] = 0.f;
+      for (int a = 0; a < 4; ++a) c->tl[s][a] = 0.f;
 #pragma unroll
-    for (int a = 0; a < 5; ++a) c.tn[s][a] = 0.f;
+      for (int a = 0; a < 5; ++a) c->tn[s][a] = 0.f;
+    }
     if (k >= N) {
       g[s][0] = g[s][1] = g[s][2] = 0.f;
       continue;
@@ -747,20 +766,23 @@ B1_UNROLL_SLOTS
       g[s][0] += cc * jx;
       g[s][1] += cc * jy;
       g[s][2] -= P.tan_max * cc;
-      const float at = (lat - P.tan_max * uz > 0.f) ? 2.f * P.w_tilt : 0.f;
-      dg[s][0] += at * jx * jx;
-      dg[s][1] += at * jy * jy;
-      dg[s][2] += at * (P.tan_max * P.tan_max);
-      float ct = 0.f;
-      if (full) {
-        ct = cc / lat;
-        dg[s][0] += ct * (1.f - jx * jx);
-        dg[s][1] += ct * (1.f - jy * jy);
+      if constexpr (Curvature) {
+        Vec<S>& dgv = *dg;
+        const float at = (lat - P.tan_max * uz > 0.f) ? 2.f * P.w_tilt : 0.f;
+        dgv[s][0] += at * jx * jx;
+        dgv[s][1] += at * jy * jy;
+        dgv[s][2] += at * (P.tan_max * P.tan_max);
+        float ct = 0.f;
+        if (full) {
+          ct = cc / lat;
+          dgv[s][0] += ct * (1.f - jx * jx);
+          dgv[s][1] += ct * (1.f - jy * jy);
+        }
+        c->tl[s][0] = at;
+        c->tl[s][1] = jx;
+        c->tl[s][2] = jy;
+        c->tl[s][3] = ct;
       }
-      c.tl[s][0] = at;
-      c.tl[s][1] = jx;
-      c.tl[s][2] = jy;
-      c.tl[s][3] = ct;
     }
     if (P.use_tnorm) {
       const float un = sqrtf(ux * ux + uy * uy + uz * uz + 1e-9f);
@@ -770,23 +792,51 @@ B1_UNROLL_SLOTS
       g[s][0] += cng * nx;
       g[s][1] += cng * ny;
       g[s][2] += cng * nz;
-      const float an = (un > P.u_max) ? 2.f * P.w_tn : 0.f;
-      dg[s][0] += an * nx * nx;
-      dg[s][1] += an * ny * ny;
-      dg[s][2] += an * nz * nz;
-      float cn = 0.f;
-      if (full) {
-        cn = cng / un;
-        dg[s][0] += cn * (1.f - nx * nx);
-        dg[s][1] += cn * (1.f - ny * ny);
-        dg[s][2] += cn * (1.f - nz * nz);
+      if constexpr (Curvature) {
+        Vec<S>& dgv = *dg;
+        const float an = (un > P.u_max) ? 2.f * P.w_tn : 0.f;
+        dgv[s][0] += an * nx * nx;
+        dgv[s][1] += an * ny * ny;
+        dgv[s][2] += an * nz * nz;
+        float cn = 0.f;
+        if (full) {
+          cn = cng / un;
+          dgv[s][0] += cn * (1.f - nx * nx);
+          dgv[s][1] += cn * (1.f - ny * ny);
+          dgv[s][2] += cn * (1.f - nz * nz);
+        }
+        c->tn[s][0] = an;
+        c->tn[s][1] = nx;
+        c->tn[s][2] = ny;
+        c->tn[s][3] = nz;
+        c->tn[s][4] = cn;
       }
-      c.tn[s][0] = an;
-      c.tn[s][1] = nx;
-      c.tn[s][2] = ny;
-      c.tn[s][3] = nz;
-      c.tn[s][4] = cn;
     }
+  }
+}
+
+// One Newton round; updates u and min_imp in place.
+template <int S>
+__device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int lane,
+                                             float vmax, bool full, const Steps<S, 3>& c0,
+                                             const float (&v0)[3], const Steps<S, 3>& goal,
+                                             const Steps<S, 1, S == kDyn>& dq,
+                                             const float* __restrict__ alphas, Arena ar,
+                                             Vec<S>& u, float& min_imp, int cg_iters) {
+  const int N = P.N, n = slots<S>(u);
+  const float cv = P.dt * P.inv_m, cp = P.dt * cv;
+  const float wq = 2.f * (P.w_a * P.inv_m * P.inv_m + P.w_T);
+  Curv<S> c = take_curv<S>(ar);
+  Vec<S> g = vec<S>(ar), dg = vec<S>(ar);
+  float cur;
+  {
+    Arena blk = ar;
+    Vec<S> pos = vec<S>(blk), vel = vec<S>(blk), gpos = vec<S>(blk), gvel = vec<S>(blk);
+    rollout<S>(P, lane, c0, v0, u, pos, vel, blk);
+    physical_gradient<S, true>(P, sp, lane, vmax, full, goal, pos, vel, gpos, gvel, &c, &dg);
+    // the line search's reference: the current iterate's cost
+    cur = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
+    thrust_gradient<S, true>(P, lane, full, u, gpos, gvel, g, &c, &dg, blk);
   }
 
   // active set: at a bound with the gradient pushing outward
@@ -921,7 +971,7 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
                      const float* __restrict__ vcap, float* __restrict__ u_out,
                      float* __restrict__ pos_out, float* __restrict__ vel_out,
                      float* __restrict__ imp_out, float* __restrict__ cost_out,
-                     float* __restrict__ scratch) {
+                     float* __restrict__ gnorm_out, float* __restrict__ scratch) {
   // [kWarps<S>][K][4]: each warp's live spheres; then, from three steps a
   // lane on, each warp's arena of arena_floats<S>(n), which at S = kDyn
   // lies in `scratch` instead when the launch passes one
@@ -1007,6 +1057,26 @@ B1_UNROLL_SLOTS
     imp_out[b] = min_imp;
     cost_out[b] = J;
   }
+  // where the launch asks for it, the final iterate's projected-gradient
+  // norm ||clamp(u - g, lb, ub) - u|| over the valid steps
+  if (gnorm_out != nullptr) {
+    Vec<S> gpos = vec<S>(ar), gvel = vec<S>(ar), g = vec<S>(ar);
+    physical_gradient<S, false>(P, sp, lane, vmax, false, goal, pos, vel, gpos, gvel, nullptr,
+                                nullptr);
+    thrust_gradient<S, false>(P, lane, false, u, gpos, gvel, g, nullptr, nullptr, ar);
+    float sq = 0.f;
+B1_UNROLL_SLOTS
+    for (int s = 0; s < n; ++s) {
+      if (lane + 32 * s >= N) continue;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float pg = fminf(fmaxf(u[s][a] - g[s][a], P.lb[a]), P.ub[a]) - u[s][a];
+        sq = fmaf(pg, pg, sq);
+      }
+    }
+    const float norm = sqrtf(wsum(sq));
+    if (lane == 0) gnorm_out[b] = norm;
+  }
 }
 
 // Whether a launch's arena lies in global scratch: from five steps a lane
@@ -1029,7 +1099,8 @@ template <int S>
 cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, const float* p0,
                    const float* v0, const float* goal, const float* obs, const float* mask,
                    const float* vcap, float* u_out, float* pos_out, float* vel_out,
-                   float* imp_out, float* cost_out, float* scratch, cudaStream_t stream) {
+                   float* imp_out, float* cost_out, float* gnorm_out, float* scratch,
+                   cudaStream_t stream) {
   const int n = S == kDyn ? (P.N + 31) / 32 : S;
   const size_t smem =
       sizeof(float) * ((size_t)kWarps<S> * 4 * P.K +
@@ -1042,7 +1113,7 @@ cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, con
   const dim3 grid((P.B + kWarps<S> - 1) / kWarps<S>), block(kWarps<S> * 32);
   mpc_solve_kernel<S><<<grid, block, smem, stream>>>(P, consts, u0, p0, v0, goal, obs, mask,
                                                      vcap, u_out, pos_out, vel_out, imp_out,
-                                                     cost_out, scratch);
+                                                     cost_out, gnorm_out, scratch);
   return cudaGetLastError();
 }
 
@@ -1053,8 +1124,8 @@ cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, c
                                       const float* p0, const float* v0, const float* goal,
                                       const float* obs, const float* mask, const float* vcap,
                                       float* u_out, float* pos_out, float* vel_out,
-                                      float* imp_out, float* cost_out, float* scratch,
-                                      cudaStream_t stream);
+                                      float* imp_out, float* cost_out, float* gnorm_out,
+                                      float* scratch, cudaStream_t stream);
 
 #ifdef B1_RUN_TIME_STEPS
 
@@ -1062,10 +1133,10 @@ cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, c
                                       const float* p0, const float* v0, const float* goal,
                                       const float* obs, const float* mask, const float* vcap,
                                       float* u_out, float* pos_out, float* vel_out,
-                                      float* imp_out, float* cost_out, float* scratch,
-                                      cudaStream_t stream) {
+                                      float* imp_out, float* cost_out, float* gnorm_out,
+                                      float* scratch, cudaStream_t stream) {
   return launch<kDyn>(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out, vel_out,
-                      imp_out, cost_out, scratch, stream);
+                      imp_out, cost_out, gnorm_out, scratch, stream);
 }
 
 #else
@@ -1089,14 +1160,17 @@ extern "C" long long mpc_scratch_floats(const MpcParams* params) {
   return spills ? (long long)P.B * arena_floats<kDyn>((P.N + 31) / 32) : 0;
 }
 
-// Launches the solve on `stream` (does not synchronize). `scratch` holds
-// mpc_scratch_floats(params) floats, or is null when that is 0. Returns the
-// CUDA error code of the launch, 0 on success.
+// Launches the solve on `stream` (does not synchronize). `gnorm_out`, B
+// floats, takes each scenario's projected-gradient norm at the final
+// iterate, or is null for none (the kernel then skips that pass). `scratch`
+// holds mpc_scratch_floats(params) floats, or is null when that is 0.
+// Returns the CUDA error code of the launch, 0 on success.
 extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, const float* u0,
                                 const float* p0, const float* v0, const float* goal,
                                 const float* obs, const float* mask, const float* vcap,
                                 float* u_out, float* pos_out, float* vel_out, float* imp_out,
-                                float* cost_out, float* scratch, void* stream) {
+                                float* cost_out, float* gnorm_out, float* scratch,
+                                void* stream) {
   const MpcParams P = *params;
   if (P.B <= 0) return 0;
   if (P.N < 1 || P.K < 0 || P.n_alpha < 0) return (int)cudaErrorInvalidValue;
@@ -1111,7 +1185,7 @@ extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, co
   const int steps = (P.N + 31) / 32;
   return (int)by_steps[(steps < kDyn ? steps : kDyn) - 1](P, consts, u0, p0, v0, goal, obs, mask,
                                                            vcap, u_out, pos_out, vel_out, imp_out,
-                                                           cost_out, scratch, st);
+                                                           cost_out, gnorm_out, scratch, st);
 }
 
 #endif  // B1_RUN_TIME_STEPS

@@ -4,7 +4,9 @@ kernel ``csrc/mpc_solve.cu`` (counterpart of
 
 :func:`solve_thrusts_fused` runs the whole projected-Newton solve of a batch
 in one launch and returns ``(thrusts, min_improvement, positions,
-velocities, cost)`` with the JAX package's shapes. For tensors on a CUDA
+velocities, cost)`` with the JAX package's shapes, and with ``with_grad``
+the projected-gradient norm of the final iterate after them, computed by
+the kernel in the same launch. For tensors on a CUDA
 device it launches the kernel or raises; only for tensors on the CPU does it
 run :func:`solve_thrusts_plain`, the plain PyTorch Newton loop with the same
 signature. ``LAUNCHES`` counts the kernel's launches; the global metrics
@@ -69,7 +71,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpc_scratch_floats.restype = ctypes.c_longlong
     lib.mpc_scratch_floats.argtypes = [ctypes.POINTER(_Params)]
     lib.mpc_solve_launch.restype = _c_int
-    lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 15
+    lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 16
     return lib
 
 
@@ -143,10 +145,12 @@ def _params(config, B: int, K: int, use_obstacles: bool) -> _Params:
 
 
 def solve_thrusts_plain(config, prob: costs.Problem, u_init: torch.Tensor,
-                        use_obstacles: bool = True) -> tuple:
+                        use_obstacles: bool = True, with_grad: bool = False) -> tuple:
     """The plain PyTorch version of :func:`solve_thrusts_fused`: the Newton
     loop of ``planning.se3_mpc``, then an exact rollout and cost of the
-    final iterate. Same signature and outputs, on any device."""
+    final iterate, and with ``with_grad`` its projected-gradient norm from
+    the dense gradient (``se3_mpc.projected_grad_norm``, the plain path's).
+    The same outputs, on any device."""
     from dart_planner_tpu_torch.planning import se3_mpc
 
     if not use_obstacles:
@@ -159,7 +163,9 @@ def solve_thrusts_plain(config, prob: costs.Problem, u_init: torch.Tensor,
     cost = costs.condensed_cost(
         u, prob, config.weights, config.dt, config.mass, gvec
     )
-    return u, min_improvement, pos, vel, cost
+    if not with_grad:
+        return u, min_improvement, pos, vel, cost
+    return u, min_improvement, pos, vel, cost, se3_mpc.projected_grad_norm(config, prob, u)
 
 
 def exact_cost(config, prob: costs.Problem, u: torch.Tensor) -> torch.Tensor:
@@ -174,10 +180,15 @@ def exact_cost(config, prob: costs.Problem, u: torch.Tensor) -> torch.Tensor:
 
 
 def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
-                        use_obstacles: bool = True, solve_pass: str = "phase1") -> tuple:
+                        use_obstacles: bool = True, solve_pass: str = "phase1",
+                        with_grad: bool = False) -> tuple:
     """Run the fused solve; returns ``(thrusts, min_improvement, positions,
     velocities, cost)``: thrusts/positions/velocities have ``u_init``'s
-    shape, min_improvement and cost are batch-shaped. ``solve_pass`` names
+    shape, min_improvement and cost are batch-shaped. With ``with_grad`` a
+    sixth, batch-shaped output follows: the projected-gradient norm of the
+    final iterate, ``||clamp(u - g, lb, ub) - u||``, which the kernel
+    computes after its final rollout (a launch without it skips that pass;
+    its other outputs are the same bit for bit). ``solve_pass`` names
     the pass of ``se3_mpc.solve`` that launches it (``"phase1"``,
     ``"tail"``, ``"restart"``) for the launch counter and the wrapper's
     span histories (:func:`run_library`).
@@ -188,7 +199,7 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     current stream (no synchronization) or raises; on CPU tensors it runs
     :func:`solve_thrusts_plain`."""
     if u_init.device.type != "cuda":
-        return solve_thrusts_plain(config, prob, u_init, use_obstacles)
+        return solve_thrusts_plain(config, prob, u_init, use_obstacles, with_grad)
     device = u_init.device
     for name, x in zip(prob._fields, prob):
         if x is not None and x.device != device:
@@ -203,15 +214,18 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
     # attribute is set per device
     with torch.cuda.device(device):
         return run_library(_library, config, prob, u_init, use_obstacles,
-                           torch.cuda.current_stream(device).cuda_stream, solve_pass)
+                           torch.cuda.current_stream(device).cuda_stream, solve_pass,
+                           with_grad)
 
 
 def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
-                use_obstacles: bool, stream, solve_pass: str = "phase1") -> tuple:
+                use_obstacles: bool, stream, solve_pass: str = "phase1",
+                with_grad: bool = False) -> tuple:
     """One launch through ``library()``, a library with the C interface of
     ``csrc/mpc_solve.cu``, on ``stream``: the inputs flattened to contiguous
     float32 per-scenario copies, the outputs allocated beside them and
-    shaped as :func:`solve_thrusts_fused` returns them, and, where the
+    shaped as :func:`solve_thrusts_fused` returns them (the norm only with
+    ``with_grad``: else the launch passes no pointer for it), and, where the
     library asks for it (from five horizon steps a lane, when a warp's arena
     does not fit the card's shared memory), a float32 scratch of its size.
     Raises if the launch fails; an empty batch launches nothing. A launch on
@@ -227,12 +241,14 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
 
     wrapper = span("b1.wrapper")
     with wrapper:
-        out = _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass)
+        out = _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass,
+                           with_grad)
     get_metrics().record(f"b1.wrapper.{solve_pass}", wrapper.ms)
     return out
 
 
-def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass) -> tuple:
+def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass,
+                 with_grad) -> tuple:
     global LAUNCHES
     device = u_init.device
     N = config.prediction_horizon
@@ -260,6 +276,7 @@ def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pas
     vel_out = torch.empty_like(u_out)
     imp_out = torch.empty((B,), dtype=torch.float32, device=device)
     cost_out = torch.empty_like(imp_out)
+    gnorm_out = torch.empty_like(imp_out) if with_grad else None
     if B > 0:
         lib = library()
         params = _params(config, B, K, use_obstacles)
@@ -276,6 +293,7 @@ def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pas
                 mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
                 u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
                 imp_out.data_ptr(), cost_out.data_ptr(),
+                None if gnorm_out is None else gnorm_out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), stream,
             )
         if err != 0:
@@ -294,10 +312,6 @@ def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pas
     def rows(x):
         return x.reshape(batch_shape + (N, 3))
 
-    return (
-        rows(u_out),
-        imp_out.reshape(batch_shape),
-        rows(pos_out),
-        rows(vel_out),
-        cost_out.reshape(batch_shape),
-    )
+    out = (rows(u_out), imp_out.reshape(batch_shape), rows(pos_out), rows(vel_out),
+           cost_out.reshape(batch_shape))
+    return out if gnorm_out is None else out + (gnorm_out.reshape(batch_shape),)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from dart_planner_tpu_torch.common.device import default_device, resolve_device
-from dart_planner_tpu_torch.common.metrics import span
+from dart_planner_tpu_torch.common.metrics import get_metrics, span
 from dart_planner_tpu_torch.common.types import DroneState, Trajectory
 from dart_planner_tpu_torch.ops import costs, cuda_mpc, dynamics, so3
 from dart_planner_tpu_torch.ops.device_constants import device_constant, vector
@@ -456,6 +456,19 @@ def solve_se3_mpc(
     return _finalize(config, prob, u, min_improvement, with_grad=with_grad)
 
 
+def projected_grad_norm(config: SE3MPCConfig, prob: costs.Problem, u: Tensor) -> Tensor:
+    """The projected-gradient norm ``||clamp(u - g, lb, ub) - u||`` over each
+    scenario's (N, 3) thrusts, g = dJ/du from the dense gradient
+    (``costs.condensed_grad``): the plain path's, and the reference for
+    kernel B1's own (``cuda_mpc.solve_thrusts_fused(with_grad=True)``)."""
+    N = config.prediction_horizon
+    gvec = _gravity(config, u.dtype, u.device)
+    lb, ub = config.thrust_bounds(u.dtype, u.device)
+    g = costs.condensed_grad(u, prob, config.weights, config.dt, config.mass, gvec)
+    pg = torch.clamp(u - g, lb, ub) - u
+    return torch.linalg.vector_norm(pg.reshape(u.shape[:-2] + (3 * N,)), dim=-1)
+
+
 @span("mpc.finalize")
 def _finalize(
     config: SE3MPCConfig,
@@ -471,19 +484,23 @@ def _finalize(
     relative cost decrease over the final Newton stage); without
     ``min_improvement`` the projected-gradient norm rule is used.
     ``precomputed`` = (pos, vel, cost) from the kernel's own final exact
-    rollout and cost pass."""
+    rollout and cost pass, and with ``with_grad`` its projected-gradient
+    norm fourth: then no dense gradient is computed here. Each call that
+    returns a norm adds one to the counter ``finalize_grad_norms``, labelled
+    ``source`` ``"kernel"`` (the norm came with ``precomputed``) or
+    ``"dense"`` (:func:`projected_grad_norm` ran here)."""
     N = config.prediction_horizon
     dtype, device = u.dtype, u.device
     gvec = _gravity(config, dtype, device)
     w = config.weights
-    batch = u.shape[:-2]
-    lb, ub = config.thrust_bounds(dtype, device)
 
     grad_norm = None
     if with_grad:
-        g = costs.condensed_grad(u, prob, w, config.dt, config.mass, gvec)
-        pg = torch.clamp(u - g, lb, ub) - u
-        grad_norm = torch.linalg.vector_norm(pg.reshape(batch + (3 * N,)), dim=-1)
+        if precomputed is not None and len(precomputed) > 3:
+            grad_norm, source = precomputed[3], "kernel"
+        else:
+            grad_norm, source = projected_grad_norm(config, prob, u), "dense"
+        get_metrics().increment("finalize_grad_norms", labels={"source": source})
     if min_improvement is not None:
         converged = min_improvement <= config.ftol
     elif grad_norm is not None:
@@ -492,7 +509,7 @@ def _finalize(
         raise ValueError("with_grad=False requires min_improvement")
 
     if precomputed is not None:
-        pos, vel, cost = precomputed
+        pos, vel, cost = precomputed[:3]
         acc = u / config.mass + gvec
     else:
         pos, vel, acc = dynamics.rollout_linear(
@@ -522,18 +539,17 @@ def _solve_once(
 ) -> SolveResult:
     """One fixed-budget solve on the selected path (no tail refinement);
     ``solve_pass`` names the pass of :func:`solve` for kernel B1's launch
-    counter."""
+    counter. On the kernel's path the projected-gradient norm, where asked
+    for, comes from the kernel's launch."""
     if method == "torch":
         return solve_se3_mpc(config, prob, u_init, use_obstacles, with_grad=with_grad)
     if u_init is None:
         u_init = initialize_thrusts(config, prob)
-    u, min_improvement, pos, vel, cost = cuda_mpc.solve_thrusts_fused(
-        config, prob, u_init, use_obstacles=use_obstacles, solve_pass=solve_pass
+    u, min_improvement, *rest = cuda_mpc.solve_thrusts_fused(
+        config, prob, u_init, use_obstacles=use_obstacles, solve_pass=solve_pass,
+        with_grad=with_grad,
     )
-    return _finalize(
-        config, prob, u, min_improvement, with_grad=with_grad,
-        precomputed=(pos, vel, cost),
-    )
+    return _finalize(config, prob, u, min_improvement, with_grad=with_grad, precomputed=rest)
 
 
 def _flatten_batch(prob: costs.Problem, res: SolveResult):

@@ -240,6 +240,22 @@ def test_kernel_takes_twelve_alphas(N):
     assert c[2 * LD:].tolist() == pytest.approx(list(TWELVE_ALPHAS))
 
 
+def test_fused_wrapper_on_cpu_returns_the_plain_norm():
+    """With ``with_grad`` the CPU branch returns the plain solve's outputs
+    and, sixth, the dense projected-gradient norm of its thrusts; the first
+    five equal those without it."""
+    rng = np.random.default_rng(4)
+    p0, v0, goal, obs = _arrays(rng, 3)
+    prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG, device="cpu")
+    u0 = T.initialize_thrusts(CFG, prob)
+    fused = cuda_mpc.solve_thrusts_fused(CFG, prob, u0, with_grad=True)
+    plain = _plain(CFG, prob, u0)
+    assert len(fused) == 6
+    for a, b in zip(fused, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(fused[5], T.projected_grad_norm(CFG, prob, fused[0]))
+
+
 # --- on a CUDA device: the hand-written kernel against the plain loop ------
 
 
@@ -554,6 +570,54 @@ def test_cuda_two_phase_solve_launches_twice(cuda_device, N):
         float(res.converged.float().mean()), float(ref.converged.float().mean()),
         abs_tol=0.1,
     )
+
+
+@pytest.mark.cuda
+def test_cuda_solve_takes_the_kernels_grad_norm(cuda_device, monkeypatch):
+    """A warm two-phase ``solve()`` at B=4096 with spheres: phase 1's launch
+    brings the projected-gradient norm; the solve's thrusts and costs equal
+    those of the same solve with the norm withheld from the launch (then
+    computed by the dense formula) bit for bit; and it still launches B1
+    twice. Against the dense formula in float64 on the launch's thrusts,
+    the kernel's norm is as close as the dense float32 one, within a factor
+    of 4 at the median, the 90th and 99th percentiles and the largest
+    error: both are float32 norms whose error is set by the float32 states
+    times the hinge weights (the ground's is 5e4), not by the norm, so near
+    convergence it is a large share of a small norm (measured on an H100 at
+    N=20, kernel / dense: 1.7e-4 / 1.3e-4, 5.3e-3 / 1.9e-3, 0.043 / 0.036,
+    0.094 / 0.111)."""
+    config = T.SE3MPCConfig()
+    prob = _gpu_problem(config, 4096, 12, cuda_device, n_obs=4)
+    warm = T.shift_warm_start(config, T.solve(config, prob).thrusts)
+    fused = cuda_mpc.solve_thrusts_fused
+    launches = []
+
+    def recorded(*args, **kwargs):
+        out = fused(*args, **kwargs)
+        launches.append(out)
+        return out
+
+    def withheld(*args, **kwargs):
+        return fused(*args, **{**kwargs, "with_grad": False})
+
+    monkeypatch.setattr(cuda_mpc, "solve_thrusts_fused", recorded)
+    before = cuda_mpc.LAUNCHES
+    res = T.solve(config, prob, warm)
+    torch.cuda.synchronize()
+    assert cuda_mpc.LAUNCHES == before + 2
+    assert [len(out) for out in launches] == [6, 5]  # phase 1 with the norm, the tail without
+    assert torch.equal(res.grad_norm, launches[0][5])
+    u = launches[0][0]
+    p64 = type(prob)(*[x.double() if x is not None and x.dtype.is_floating_point else x
+                       for x in prob])
+    exact = T.projected_grad_norm(config, p64, u.double())
+    q = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=cuda_device)
+    err_k = torch.quantile((res.grad_norm.double() - exact).abs(), q)
+    err_d = torch.quantile((T.projected_grad_norm(config, prob, u).double() - exact).abs(), q)
+    assert bool((err_k <= 4 * err_d + 1e-5).all()), (err_k.tolist(), err_d.tolist())
+    monkeypatch.setattr(cuda_mpc, "solve_thrusts_fused", withheld)
+    ref = T.solve(config, prob, warm)
+    assert torch.equal(res.thrusts, ref.thrusts) and torch.equal(res.cost, ref.cost)
 
 
 @pytest.mark.cuda

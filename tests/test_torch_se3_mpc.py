@@ -279,3 +279,72 @@ def test_interop_round_trip():
     assert isinstance(prob, tcosts.Problem)
     with pytest.raises(TypeError):
         interop.problem_from_numpy([1, 2, 3])
+
+
+def _norm_sources():
+    """``finalize_grad_norms`` by its ``source`` label."""
+    from dart_planner_tpu_torch.common.metrics import get_metrics
+
+    return {dict(k)["source"]: n for k, n in get_metrics().series("finalize_grad_norms").items()}
+
+
+def _rose(before, after):
+    return {s: after.get(s, 0) - before.get(s, 0) for s in ("kernel", "dense")}
+
+
+@pytest.mark.parametrize("given", ["kernel", "none", "plain"])
+def test_finalize_takes_a_given_norm_else_runs_the_dense_gradient(monkeypatch, given):
+    """``_finalize`` with a norm as ``precomputed``'s fourth entry (the
+    kernel's, from its launch) returns that norm and runs no dense gradient
+    (``condensed_grad`` raises here). With a ``precomputed`` of three (no
+    norm came back) and on the plain path it runs ``condensed_grad`` once,
+    and the norm is the JAX package's. ``finalize_grad_norms`` counts the
+    call under its source."""
+    jcfg, pj, prob = _both(CFG, _arrays(5, 4))
+    u = T.initialize_thrusts(CFG, prob)
+    imp = torch.zeros(4)
+    gvec = torch.tensor([0.0, 0.0, -CFG.gravity])
+    pos, vel, _ = T.dynamics.rollout_linear(u, prob.p0, prob.v0, CFG.dt, CFG.mass, gvec)
+    cost = tcosts.condensed_cost(u, prob, CFG.weights, CFG.dt, CFG.mass, gvec)
+    norm = torch.arange(1.0, 5.0)  # a marker for the kernel's norm
+    calls = []
+    dense = tcosts.condensed_grad
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return dense(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a dense gradient where the norm was given")
+
+    monkeypatch.setattr(tcosts, "condensed_grad", refuse if given == "kernel" else counted)
+    before = _norm_sources()
+    if given == "kernel":
+        res = T._finalize(CFG, prob, u, imp, precomputed=(pos, vel, cost, norm))
+    elif given == "none":
+        res = T._finalize(CFG, prob, u, imp, precomputed=(pos, vel, cost))
+    else:
+        res = T._finalize(CFG, prob, u, imp)
+    rose = _rose(before, _norm_sources())
+    if given == "kernel":
+        assert res.grad_norm is norm and rose == {"kernel": 1, "dense": 0}
+    else:
+        assert len(calls) == 1 and rose == {"kernel": 0, "dense": 1}
+        want = J._finalize(jcfg, pj, u.numpy(), np.zeros(4, np.float32)).grad_norm
+        np.testing.assert_allclose(res.grad_norm.numpy(), _np(want), rtol=1e-4, atol=1e-4)
+    assert torch.equal(res.positions, pos) and torch.equal(res.cost, cost)
+
+
+def test_plain_solve_counts_one_dense_norm():
+    """A two-phase solve on the plain path computes phase 1's norm by the
+    dense gradient, once: the tail pass asks for none, and ``/metrics``
+    shows the counter as ``dart_finalize_grad_norms_total``."""
+    from dart_planner_tpu_torch.common.metrics import get_metrics
+
+    _, _, prob = _both(CFG, _arrays(6, 4))
+    before = _norm_sources()
+    res = T.solve(CFG, prob, method="torch")
+    assert res.grad_norm.shape == (4,)
+    assert _rose(before, _norm_sources()) == {"kernel": 0, "dense": 1}
+    assert 'dart_finalize_grad_norms_total{source="dense"}' in (
+        get_metrics().prometheus_exposition())

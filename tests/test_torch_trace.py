@@ -164,9 +164,9 @@ def test_b1_wrapper_is_recorded_through_the_emulated_library(fresh, emulated_lib
 def _through_the_emulated_b1(monkeypatch, library):
     """``se3_mpc.solve`` on CPU tensors through the emulated kernel B1, as on
     the card: every pass's launch goes through ``run_library``."""
-    def fused(config, prob, u_init, use_obstacles=True, solve_pass="phase1"):
+    def fused(config, prob, u_init, use_obstacles=True, solve_pass="phase1", with_grad=False):
         return cuda_mpc.run_library(lambda: library, config, prob, u_init, use_obstacles,
-                                    None, solve_pass)
+                                    None, solve_pass, with_grad)
 
     monkeypatch.setattr(se3_mpc, "resolve_method", lambda prob, method: "cuda")
     monkeypatch.setattr(cuda_mpc, "solve_thrusts_fused", fused)
