@@ -248,12 +248,13 @@ def b1_one_round(cfg_r, prob, u0, gvec) -> dict:
     import torch
 
     from dart_planner_tpu_torch.ops import costs, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
 
     kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
-    pr = cuda_mpc.solve_thrusts_plain(cfg_r, prob, u0)
+    pr = se3_mpc.solve_thrusts_plain(cfg_r, prob, u0)
     own = costs.condensed_cost(kr[0], prob, cfg_r.weights, cfg_r.dt, cfg_r.mass, gvec)
     torch.cuda.synchronize()
-    e = {"finite": all(bool(torch.isfinite(x).all()) for x in kr)}
+    e = {"finite": all(bool(torch.isfinite(x).all()) for x in kr[:5])}
     for name, i in (("du", 0), ("dp", 2), ("dv", 3)):
         d = (kr[i] - pr[i]).abs()
         e[name], e[name + "_over"] = float(d.max()), float((d > 2e-3).float().mean())
@@ -696,6 +697,7 @@ def b1_k11_phase(first) -> float:
 
     from dart_planner_tpu_torch.common import frames
     from dart_planner_tpu_torch.ops import costs, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
 
     config, prob, u0 = first
     check(prob.obstacles.shape[-2] == 11 and prob.v_cap is not None,
@@ -709,11 +711,11 @@ def b1_k11_phase(first) -> float:
         cfg_r = config._replace(max_iterations=1, cg_iterations=2,
                                 gn_warmup_iterations=n_gn)
         kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
-        pr = cuda_mpc.solve_thrusts_plain(cfg_r, prob, u0)
+        pr = se3_mpc.solve_thrusts_plain(cfg_r, prob, u0)
         own = costs.condensed_cost(kr[0], prob, config.weights, config.dt,
                                    config.mass, gvec)
         torch.cuda.synchronize()
-        check(all(bool(torch.isfinite(x).all()) for x in kr),
+        check(all(bool(torch.isfinite(x).all()) for x in kr[:5]),
               f"K=11 {stage}: non-finite kernel output")
         du, dp, dv = (float((kr[i] - pr[i]).abs().max()) for i in (0, 2, 3))
         c_own = float(((kr[4] - own).abs() / own.abs()).max())
@@ -761,7 +763,7 @@ def convex_tie_phase(dev) -> None:
     for r in range(1, 5):
         c = cfg._replace(max_iterations=r)
         k = cuda_mpc.solve_thrusts_fused(c, prob, u0, False)
-        p = cuda_mpc.solve_thrusts_plain(c, prob, u0, False)
+        p = se3_mpc.solve_thrusts_plain(c, prob, u0, False)
         du = (k[0] - p[0]).abs().amax((-1, -2))
         apart = [f"scenario {i}: {float(du[i]):.3g} N, cost kernel {float(k[4][i]):.8g} "
                  f"plain {float(p[4][i]):.8g}" for i in (du > 2e-3).nonzero().flatten().tolist()]
@@ -1131,16 +1133,16 @@ def solver_phases(dev, card: str, first) -> dict:
     u0c = se3_mpc.initialize_thrusts(cfg_cvx, prob)
     cfg_one = cfg_cvx._replace(max_iterations=1, cg_iterations=2)
     k1 = cuda_mpc.solve_thrusts_fused(cfg_one, prob, u0c, use_obstacles=False)
-    p1 = cuda_mpc.solve_thrusts_plain(cfg_one, prob, u0c, use_obstacles=False)
+    p1 = se3_mpc.solve_thrusts_plain(cfg_one, prob, u0c, use_obstacles=False)
     kc = cuda_mpc.solve_thrusts_fused(cfg_cvx, prob, u0c, use_obstacles=False)
-    pc = cuda_mpc.solve_thrusts_plain(cfg_cvx, prob, u0c, use_obstacles=False)
+    pc = se3_mpc.solve_thrusts_plain(cfg_cvx, prob, u0c, use_obstacles=False)
     torch.cuda.synchronize()
     err_u = float((k1[0] - p1[0]).abs().max())
     err_c1 = float(((k1[4] - p1[4]).abs() / p1[4].abs()).max())
     err_c = float(((kc[4] - pc[4]).abs() / pc[4].abs()).max())
     du_full = float((kc[0] - pc[0]).abs().max())
     for out in (k1, kc):
-        check(all(bool(torch.isfinite(x).all()) for x in out),
+        check(all(bool(torch.isfinite(x).all()) for x in out[:5]),
               "convex: non-finite kernel output")
     check(err_u <= 2e-3, f"convex: thrust max |kernel - plain| {err_u:.3g} > 2e-3")
     check(err_c1 <= 1e-5, f"convex: one-round cost max rel diff {err_c1:.3g} > 1e-5")
@@ -1178,10 +1180,10 @@ def solver_phases(dev, card: str, first) -> dict:
             err_rounds.append(e["du"])
 
     ko = cuda_mpc.solve_thrusts_fused(cfg_p1, prob, u0)
-    po = cuda_mpc.solve_thrusts_plain(cfg_p1, prob, u0)
+    po = se3_mpc.solve_thrusts_plain(cfg_p1, prob, u0)
     c0 = costs.condensed_cost(u0, prob, base.weights, base.dt, base.mass, gvec)
     torch.cuda.synchronize()
-    finite = all(bool(torch.isfinite(x).all()) for x in ko)
+    finite = all(bool(torch.isfinite(x).all()) for x in ko[:5])
     check(finite, "obstacles: non-finite kernel output")
     mk, mp = float(ko[4].mean()), float(po[4].mean())
     check(mk <= 1.05 * mp and mp <= 1.05 * mk,
@@ -1233,7 +1235,7 @@ def solver_phases(dev, card: str, first) -> dict:
     u_qp = se3_mpc.initialize_thrusts(base, prob)
     gt = torch.minimum(
         cuda_mpc.solve_thrusts_fused(cfg_gt, prob, u_qp)[4],
-        cuda_mpc.solve_thrusts_plain(cfg_gt, prob, u_qp)[4],
+        se3_mpc.solve_thrusts_plain(cfg_gt, prob, u_qp)[4],
     )
     excess = ((res.cost - gt) / gt.abs()).float()
     conv_excess = excess[res.converged]
@@ -1301,7 +1303,7 @@ def solver_phases(dev, card: str, first) -> dict:
     n_tail = math.ceil(base.tail_capacity * B_BENCH)
     bound_p1 = b1_bound(cfg_p1, prob)
     bound_tail = b1_bound(cfg_t, prob)[0] * n_tail / B_BENCH
-    fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
+    fused, plain = cuda_mpc.solve_thrusts_fused, se3_mpc.solve_thrusts_plain
     shapes = (
         ("phase1_4096", f"phase-1 solve B={B_BENCH}", lambda: fused(cfg_p1, prob, u0),
          lambda: plain(cfg_p1, prob, u0), 5, bound_p1),
@@ -1515,10 +1517,10 @@ def figure8_kernel_checks(dev) -> float:
                          obstacle_mask=torch.zeros((1, 1), dtype=torch.bool, device=dev))
     hover = torch.tensor([0.0, 0.0, mpc.hover_thrust], device=dev).expand(1, N, 3)
     u_start = se3_mpc.shift_warm_start(mpc, hover)
-    ku, _, kpos, kvel, kcost = cuda_mpc.solve_thrusts_fused(mpc, prob, u_start,
-                                                            use_obstacles=False)
-    pu, _, ppos, pvel, pcost = cuda_mpc.solve_thrusts_plain(mpc, prob, u_start,
-                                                            use_obstacles=False)
+    ku, _, kpos, kvel, kcost, _ = cuda_mpc.solve_thrusts_fused(mpc, prob, u_start,
+                                                               use_obstacles=False)
+    pu, _, ppos, pvel, pcost, _ = se3_mpc.solve_thrusts_plain(mpc, prob, u_start,
+                                                              use_obstacles=False)
     torch.cuda.synchronize()
     check(all(bool(torch.isfinite(x).all()) for x in (ku, kpos, kvel, kcost)),
           "figure-8 B1: non-finite kernel output")
@@ -3574,16 +3576,17 @@ def b1_round_scenarios(cfg_r, prob, u0, with_cpu: bool = False) -> dict:
     import torch
 
     from dart_planner_tpu_torch.ops import costs, cuda_mpc
+    from dart_planner_tpu_torch.planning import se3_mpc
 
     kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
-    pr = cuda_mpc.solve_thrusts_plain(cfg_r, prob, u0)
+    pr = se3_mpc.solve_thrusts_plain(cfg_r, prob, u0)
     torch.cuda.synchronize()
     ek, ep = cuda_mpc.exact_cost(cfg_r, prob, kr[0]), cuda_mpc.exact_cost(cfg_r, prob, pr[0])
     dx, c_pl, di = _scenarios_apart(kr, ek, pr, ep)
     ek, ep, ck, cp = (x.reshape(-1) for x in (ek, ep, kr[4].double(), pr[4].double()))
     c_own = (ck - ek).abs() / ek.abs()
     apart = ((dx > 2e-3) | (c_pl > 1e-4) | (di > 1e-4)).nonzero().flatten().tolist()
-    out = {"finite": all(bool(torch.isfinite(x).all()) for x in kr), "B": dx.numel(),
+    out = {"finite": all(bool(torch.isfinite(x).all()) for x in kr[:5]), "B": dx.numel(),
            "dx": float(dx.max()), "c_pl": float(c_pl.max()), "di": float(di.max()),
            "c_own": c_own, "dx_all": dx, "c_all": c_pl, "di_all": di,
            "c_plain_own": float(((cp - ep).abs() / ep.abs()).max()),
@@ -3591,7 +3594,7 @@ def b1_round_scenarios(cfg_r, prob, u0, with_cpu: bool = False) -> dict:
                      for i in apart]}
     if with_cpu:
         cpu = costs.Problem(*[None if x is None else x.cpu() for x in prob])
-        cr = [x.to(u0.device) for x in cuda_mpc.solve_thrusts_plain(cfg_r, cpu, u0.cpu())]
+        cr = [x.to(u0.device) for x in se3_mpc.solve_thrusts_plain(cfg_r, cpu, u0.cpu())[:5]]
         dx_c, c_c, di_c = _scenarios_apart(cr, cuda_mpc.exact_cost(cfg_r, prob, cr[0]), pr, ep)
         out["cpu"] = {"n_apart": int(((dx_c > 2e-3) | (c_c > 1e-4) | (di_c > 1e-4)).sum()),
                       "dx": float(dx_c.max()), "c_pl": float(c_c.max()),
@@ -3666,11 +3669,11 @@ def b1_rounds(config, prob, rounds: int, cg: int) -> dict:
     cfg = config._replace(max_iterations=rounds, cg_iterations=cg, tail_iterations=0)
     u0 = se3_mpc.initialize_thrusts(cfg, prob)
     k = cuda_mpc.solve_thrusts_fused(cfg, prob, u0)
-    p = cuda_mpc.solve_thrusts_plain(cfg, prob, u0)
+    p = se3_mpc.solve_thrusts_plain(cfg, prob, u0)
     cpu = costs.Problem(*[None if x is None else x.cpu() for x in prob])
-    c = [x.to(u0.device) for x in cuda_mpc.solve_thrusts_plain(cfg, cpu, u0.cpu())]
+    c = [x.to(u0.device) for x in se3_mpc.solve_thrusts_plain(cfg, cpu, u0.cpu())[:5]]
     torch.cuda.synchronize()
-    check(all(bool(torch.isfinite(x).all()) for x in k), f"{tag}: non-finite kernel output")
+    check(all(bool(torch.isfinite(x).all()) for x in k[:5]), f"{tag}: non-finite kernel output")
     lb, ub = cfg.thrust_bounds(device=u0.device)
     check(bool(((k[0] >= lb - 1e-5) & (k[0] <= ub + 1e-5)).all()),
           f"{tag}: thrusts outside thrust_bounds")
@@ -3918,7 +3921,7 @@ def long_horizon_phase(dev, card: str) -> dict:
         check(sorted(ptxas) == [1, 2, 3, 4, 5] and all(len(v) == 4 for v in ptxas.values()),
               f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-5")
     times = {}
-    fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
+    fused, plain = cuda_mpc.solve_thrusts_fused, se3_mpc.solve_thrusts_plain
     for N in TIMED_HORIZONS:
         cfg = base._replace(prediction_horizon=N, tail_iterations=0)
         for B in (B_BENCH, 1):
@@ -4147,7 +4150,7 @@ def past_128_phase(dev, card: str) -> dict:
 
     ptxas = ptxas_by_steps(_build.build_log).get(5, {})
     times = {}
-    fused, plain = cuda_mpc.solve_thrusts_fused, cuda_mpc.solve_thrusts_plain
+    fused, plain = cuda_mpc.solve_thrusts_fused, se3_mpc.solve_thrusts_plain
     for N in PAST_128_TIMED:
         cfg = base._replace(prediction_horizon=N)
         for B in (B_BENCH, 1):

@@ -1,20 +1,26 @@
 // The few CUDA features csrc/mpc_solve.cu and csrc/tick_block.cu use,
-// emulated on the CPU for tests/test_torch_long_horizon.py and
-// tests/test_torch_tick_scope.py, which compile the kernels with g++.
-// mpc_solve.cu (emu_launch): one warp at a time, each of its 32 lanes a
-// thread; shuffles and ballots pass through a buffer between two barrier
-// waits, so every lane sees the values all lanes held at the call, as on the
-// card. Blocks and warps run one after another (the kernel shares nothing
-// across warps), so one buffer and one barrier serve every warp.
-// tick_block.cu (emu_launch_block): one block at a time, all its threads at
-// once, __syncthreads a barrier of the block (the kernel uses no shuffle).
+// emulated on the CPU for the tests that compile the kernels with g++
+// (tests/_emulated_b1.py, tests/test_torch_tick_scope.py).
+// A launch runs on the calling thread, one block at a time. The threads of
+// the group that meets (a warp under emu_launch, a block under
+// emu_launch_block) take turns, each on a stack of its own: a thread runs to
+// its next meeting (a shuffle, a ballot, __syncwarp, __syncthreads), then
+// the next one does; once all have arrived, the next round resumes them.
+// A shuffle or ballot writes into its round's buffer before it hands over
+// and reads after, so every thread sees what all threads held at the call,
+// as on the card. The kernels make every meeting one of the whole warp (or
+// block), as the card requires, so the order of the turns changes nothing.
 #pragma once
-#include <barrier>
+#undef _FORTIFY_SOURCE  // first: a fortified longjmp refuses another stack
+#include <setjmp.h>
+#include <sys/mman.h>
+#include <ucontext.h>
+#include <unistd.h>
+
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
 #include <cstdlib>
-#include <thread>
-#include <vector>
 
 #define __device__
 #define __host__
@@ -30,7 +36,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-extern thread_local uint3 threadIdx, blockIdx;
+inline uint3 threadIdx, blockIdx;  // the running thread's, set before each resume
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -45,7 +51,7 @@ inline cudaError_t cudaGetDevice(int* dev) {
 }
 // the opt-in shared memory a block may take: an H100's 232,448 bytes unless
 // the program that links the emulation sets it otherwise
-extern int emu_smem_optin;
+inline int emu_smem_optin = 232448;
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
   *value = emu_smem_optin;
   return cudaSuccess;
@@ -53,39 +59,113 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "CPU emulation"; }
 
-extern std::barrier<>* emu_warp;
-extern float emu_buf[32];
-extern unsigned emu_bits[32];
+namespace emu {
+constexpr unsigned kMaxThreads = 1024;  // a block's, as on the card
+constexpr size_t kStack = size_t(1) << 20;
+inline ucontext_t entry[kMaxThreads];            // each thread's start
+inline jmp_buf scheduler, threads[kMaxThreads];  // where each side left off
+inline unsigned running, round_;                 // the thread resumed, its round
+inline bool finished[kMaxThreads];
+inline float buf[2][kMaxThreads];  // shuffles' values, by round parity
+inline bool bits[2][kMaxThreads];  // ballots' predicates, by round parity
+inline void* body;                 // the launch's kernel call
 
-inline int emu_lane() { return threadIdx.x & 31; }
-inline float emu_exchange(float v, int src) {
-  emu_buf[emu_lane()] = v;
-  emu_warp->arrive_and_wait();
-  const float r = emu_buf[src];
-  emu_warp->arrive_and_wait();
-  return r;
+// A thread is entered by setcontext, then switched by _setjmp / _longjmp,
+// which make no system call. Neither side is inlined, so that no other
+// function holds a _setjmp: the kernels compile as around any call.
+// The running thread hands over; it returns when the next round resumes it.
+__attribute__((noinline)) inline void arrive() {
+  if (!_setjmp(threads[running])) _longjmp(scheduler, 1);
 }
-inline float __shfl_sync(unsigned, float v, int src) { return emu_exchange(v, src); }
+// The scheduler runs thread `running` to its next meeting or its end.
+__attribute__((noinline)) inline void resume() {
+  if (!_setjmp(scheduler)) {
+    if (round_ == 0) setcontext(&entry[running]);
+    _longjmp(threads[running], 1);
+  }
+}
+template <class F>
+void start() {
+  (*static_cast<F*>(body))();
+  finished[running] = true;
+  _longjmp(scheduler, 1);
+}
+
+inline float exchange(float v, int src) {
+  float* b = buf[round_ & 1];
+  const unsigned t = threadIdx.x;
+  b[t] = v;
+  arrive();
+  return b[(t & ~31u) + src];
+}
+
+// A launch's stacks, one a thread, each above a guard page, so that an
+// overflow faults instead of writing into the next stack.
+struct Stacks {
+  size_t page = size_t(sysconf(_SC_PAGESIZE)), each = kStack + page;
+  unsigned n;
+  char* base;
+  explicit Stacks(unsigned count) : n(count) {
+    void* p = mmap(nullptr, n * each, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) std::abort();
+    base = static_cast<char*>(p);
+    for (unsigned t = 0; t < n; ++t) mprotect(base + t * each, page, PROT_NONE);
+  }
+  ~Stacks() { munmap(base, n * each); }
+
+  // runs f() as the group's n threads, thread t as threadIdx.x = first + t
+  template <class F>
+  void run(F& f, unsigned first, unsigned block) {
+    body = &f;
+    for (unsigned t = 0; t < n; ++t) {
+      getcontext(&entry[t]);
+      entry[t].uc_stack = {base + t * each + page, 0, kStack};
+      entry[t].uc_link = nullptr;  // start() never returns
+      makecontext(&entry[t], start<F>, 0);
+      finished[t] = false;
+    }
+    for (unsigned done = 0, r = 0; done == 0; ++r) {
+      for (unsigned t = 0; t < n; ++t) {
+        running = t, round_ = r;
+        threadIdx = {first + t, 0, 0};
+        blockIdx = {block, 0, 0};
+        resume();
+        done += finished[t];
+      }
+      if (done != 0 && done != n) {  // on the card the rest would wait for ever
+        std::fprintf(stderr, "emulation: %u of %u threads left at a meeting\n", done, n);
+        std::abort();
+      }
+    }
+  }
+};
+}  // namespace emu
+
+inline float __shfl_sync(unsigned, float v, int src) { return emu::exchange(v, src); }
 inline float __shfl_up_sync(unsigned, float v, int d) {
-  const int l = emu_lane();
-  return emu_exchange(v, l >= d ? l - d : l);
+  const int l = threadIdx.x & 31;
+  return emu::exchange(v, l >= d ? l - d : l);
 }
 inline float __shfl_down_sync(unsigned, float v, int d) {
-  const int l = emu_lane();
-  return emu_exchange(v, l + d < 32 ? l + d : l);
+  const int l = threadIdx.x & 31;
+  return emu::exchange(v, l + d < 32 ? l + d : l);
 }
-inline float __shfl_xor_sync(unsigned, float v, int m) { return emu_exchange(v, emu_lane() ^ m); }
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  return emu::exchange(v, (threadIdx.x & 31) ^ m);
+}
 inline unsigned __ballot_sync(unsigned, bool p) {
-  emu_bits[emu_lane()] = p;
-  emu_warp->arrive_and_wait();
+  bool* b = emu::bits[emu::round_ & 1];
+  const unsigned warp = threadIdx.x & ~31u;
+  b[threadIdx.x] = p;
+  emu::arrive();
   unsigned r = 0;
-  for (int i = 0; i < 32; ++i) r |= (emu_bits[i] ? 1u : 0u) << i;
-  emu_warp->arrive_and_wait();
+  for (unsigned i = 0; i < 32; ++i) r |= (b[warp + i] ? 1u : 0u) << i;
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-extern std::barrier<>* emu_block;
-inline void __syncthreads() { emu_block->arrive_and_wait(); }
+inline void __syncwarp() { emu::arrive(); }
+inline void __syncthreads() { emu::arrive(); }
 // IEEE operations the compiler may not contract into an FMA: the volatile
 // store rounds each result, as the card's _rn intrinsics do
 inline float __fmul_rn(float a, float b) {
@@ -100,40 +180,23 @@ inline float __fsub_rn(float a, float b) {
   volatile float r = a - b;
   return r;
 }
-inline void __syncwarp() { emu_warp->arrive_and_wait(); }
 inline void __trap() { std::abort(); }
 
-// kernel<<<grid, block, shared, stream>>>(args...)
+// kernel<<<grid, block, shared, stream>>>(args...) for a kernel whose warps
+// share nothing: one warp at a time
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args) {
+  auto f = [&] { kernel(args...); };
+  emu::Stacks lanes(32);
   for (unsigned bx = 0; bx < grid.x; ++bx)
-    for (unsigned w = 0; w < block.x / 32; ++w) {
-      std::vector<std::thread> lanes;
-      for (unsigned l = 0; l < 32; ++l)
-        lanes.emplace_back([=] {
-          threadIdx = {w * 32 + l, 0, 0};
-          blockIdx = {bx, 0, 0};
-          kernel(args...);
-        });
-      for (auto& t : lanes) t.join();
-    }
+    for (unsigned w = 0; w < block.x / 32; ++w) lanes.run(f, w * 32, bx);
 }
 
 // kernel<<<grid, block, shared, stream>>>(args...) for a kernel whose warps
-// share memory and meet at __syncthreads: one block at a time, each of its
-// threads a thread of the CPU
+// share memory and meet at __syncthreads: one block at a time
 template <class K, class... A>
 void emu_launch_block(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, A... args) {
-  for (unsigned bx = 0; bx < grid.x; ++bx) {
-    std::barrier<> sync(block.x);
-    emu_block = &sync;
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block.x; ++t)
-      threads.emplace_back([=] {
-        threadIdx = {t, 0, 0};
-        blockIdx = {bx, 0, 0};
-        kernel(args...);
-      });
-    for (auto& th : threads) th.join();
-  }
+  auto f = [&] { kernel(args...); };
+  emu::Stacks group(block.x);
+  for (unsigned bx = 0; bx < grid.x; ++bx) group.run(f, 0, bx);
 }

@@ -3,15 +3,14 @@ kernel ``csrc/mpc_solve.cu`` (counterpart of
 :mod:`dart_planner_tpu.ops.pallas_mpc`).
 
 :func:`solve_thrusts_fused` runs the whole projected-Newton solve of a batch
-in one launch and returns ``(thrusts, min_improvement, positions,
-velocities, cost)`` with the JAX package's shapes, and with ``with_grad``
-the projected-gradient norm of the final iterate after them, computed by
-the kernel in the same launch. For tensors on a CUDA
-device it launches the kernel or raises; only for tensors on the CPU does it
-run :func:`solve_thrusts_plain`, the plain PyTorch Newton loop with the same
-signature. ``LAUNCHES`` counts the kernel's launches; the global metrics
-counter ``b1_launches`` counts them by the solve's pass and the kernel's
-arm (:func:`run_library`).
+in one launch and returns a :class:`ThrustSolve` with the JAX package's
+shapes, and with ``with_grad`` the projected-gradient norm of the final
+iterate, computed by the kernel in the same launch. It takes tensors on a
+CUDA device and launches the kernel or raises; the plain PyTorch twin with
+the same signature is ``planning.se3_mpc.solve_thrusts_plain``, and
+``se3_mpc`` alone chooses between the two. ``LAUNCHES`` counts the kernel's
+launches; the global metrics counter ``b1_launches`` counts them by the
+solve's pass and the kernel's arm (:func:`run_library`).
 
 The kernel applies the rollout maps S_p/m, S_v/m, their transposes and the
 quadratic Hessian as warp scans (``csrc/mpc_solve.cu``;
@@ -27,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,23 @@ REPLACES = "dart_planner_tpu/ops/pallas_mpc.py:806"
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+
+class ThrustSolve(NamedTuple):
+    """One fixed-budget solve of a batch's thrusts, by the kernel or by its
+    plain twin: thrusts, positions and velocities have the initial plan's
+    shape, the rest are batch-shaped. ``min_improvement`` is the minimum
+    relative cost decrease over the final Newton stage; positions,
+    velocities and cost are the exact rollout and cost of the final thrusts;
+    ``grad_norm``, their projected-gradient norm
+    ``||clamp(u - g, lb, ub) - u||``, is ``None`` where none was asked for."""
+
+    thrusts: torch.Tensor
+    min_improvement: torch.Tensor
+    positions: torch.Tensor
+    velocities: torch.Tensor
+    cost: torch.Tensor
+    grad_norm: Optional[torch.Tensor]
 
 
 class _Params(ctypes.Structure):
@@ -144,30 +161,6 @@ def _params(config, B: int, K: int, use_obstacles: bool) -> _Params:
     return P
 
 
-def solve_thrusts_plain(config, prob: costs.Problem, u_init: torch.Tensor,
-                        use_obstacles: bool = True, with_grad: bool = False) -> tuple:
-    """The plain PyTorch version of :func:`solve_thrusts_fused`: the Newton
-    loop of ``planning.se3_mpc``, then an exact rollout and cost of the
-    final iterate, and with ``with_grad`` its projected-gradient norm from
-    the dense gradient (``se3_mpc.projected_grad_norm``, the plain path's).
-    The same outputs, on any device."""
-    from dart_planner_tpu_torch.planning import se3_mpc
-
-    if not use_obstacles:
-        prob = se3_mpc._strip_obstacles(prob)
-    u, min_improvement = se3_mpc._newton_iterate(config, prob, u_init, use_obstacles)
-    gvec = se3_mpc._gravity(config, u.dtype, u.device)
-    pos, vel, _ = dynamics.rollout_linear(
-        u, prob.p0, prob.v0, config.dt, config.mass, gvec
-    )
-    cost = costs.condensed_cost(
-        u, prob, config.weights, config.dt, config.mass, gvec
-    )
-    if not with_grad:
-        return u, min_improvement, pos, vel, cost
-    return u, min_improvement, pos, vel, cost, se3_mpc.projected_grad_norm(config, prob, u)
-
-
 def exact_cost(config, prob: costs.Problem, u: torch.Tensor) -> torch.Tensor:
     """The cost of thrusts ``u`` evaluated in float64 from the same float32
     inputs the kernel takes (the problem, the float32 gravity): the
@@ -181,25 +174,24 @@ def exact_cost(config, prob: costs.Problem, u: torch.Tensor) -> torch.Tensor:
 
 def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
                         use_obstacles: bool = True, solve_pass: str = "phase1",
-                        with_grad: bool = False) -> tuple:
-    """Run the fused solve; returns ``(thrusts, min_improvement, positions,
-    velocities, cost)``: thrusts/positions/velocities have ``u_init``'s
-    shape, min_improvement and cost are batch-shaped. With ``with_grad`` a
-    sixth, batch-shaped output follows: the projected-gradient norm of the
-    final iterate, ``||clamp(u - g, lb, ub) - u||``, which the kernel
-    computes after its final rollout (a launch without it skips that pass;
-    its other outputs are the same bit for bit). ``solve_pass`` names
-    the pass of ``se3_mpc.solve`` that launches it (``"phase1"``,
-    ``"tail"``, ``"restart"``) for the launch counter and the wrapper's
-    span histories (:func:`run_library`).
+                        with_grad: bool = False) -> ThrustSolve:
+    """Run the fused solve in one launch. With ``with_grad`` the kernel
+    computes the projected-gradient norm after its final rollout (a launch
+    without it skips that pass; its other outputs are the same bit for
+    bit). ``solve_pass`` names the pass of ``se3_mpc.solve`` that launches
+    it (``"phase1"``, ``"tail"``, ``"restart"``) for the launch counter and
+    the wrapper's span histories (:func:`run_library`).
 
     Accepts any leading batch shape; shared Problem fields (one goal, one
     obstacle set for the batch) are broadcast to contiguous per-scenario
-    copies before the launch. On CUDA tensors it launches the kernel on the
-    current stream (no synchronization) or raises; on CPU tensors it runs
-    :func:`solve_thrusts_plain`."""
+    copies before the launch. It launches the kernel on the current stream
+    of the tensors' CUDA device (no synchronization) or raises, on CPU
+    tensors too."""
     if u_init.device.type != "cuda":
-        return solve_thrusts_plain(config, prob, u_init, use_obstacles, with_grad)
+        raise ValueError(
+            f"the fused solve needs tensors on a CUDA device, got {u_init.device}; "
+            "the plain loop is se3_mpc.solve_thrusts_plain (method='torch')"
+        )
     device = u_init.device
     for name, x in zip(prob._fields, prob):
         if x is not None and x.device != device:
@@ -220,7 +212,7 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
 
 def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
                 use_obstacles: bool, stream, solve_pass: str = "phase1",
-                with_grad: bool = False) -> tuple:
+                with_grad: bool = False) -> ThrustSolve:
     """One launch through ``library()``, a library with the C interface of
     ``csrc/mpc_solve.cu``, on ``stream``: the inputs flattened to contiguous
     float32 per-scenario copies, the outputs allocated beside them and
@@ -237,81 +229,73 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     warps' arena lies in the global scratch, else ``"shared"``). Timed whole
     as the span ``b1.wrapper``, whose milliseconds also go into the history
     ``b1.wrapper.<solve_pass>``."""
+    global LAUNCHES
     from dart_planner_tpu_torch.common.metrics import get_metrics, span  # common shares ops' layer
 
     wrapper = span("b1.wrapper")
     with wrapper:
-        out = _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass,
-                           with_grad)
+        device = u_init.device
+        N = config.prediction_horizon
+        batch_shape = tuple(u_init.shape[:-2])
+        B = math.prod(batch_shape)
+        K = prob.obstacles.shape[-2]
+
+        def flat(x, trailing):
+            x = x.to(torch.float32).expand(batch_shape + trailing)
+            return x.reshape((B,) + trailing).contiguous()
+
+        u0 = flat(u_init, (N, 3))
+        p0 = flat(prob.p0, (3,))
+        v0 = flat(prob.v0, (3,))
+        if prob.goal.ndim == prob.p0.ndim + 1:  # per-step reference
+            goal = flat(prob.goal, (N, 3))
+        else:
+            goal = flat(prob.goal, (3,))[:, None, :].expand(B, N, 3).contiguous()
+        obs = flat(prob.obstacles, (K, 4))
+        mask = flat(prob.obstacle_mask, (K,))
+        vcap = None if prob.v_cap is None else flat(prob.v_cap, ())
+
+        u_out = torch.empty((B, N, 3), dtype=torch.float32, device=device)
+        pos_out = torch.empty_like(u_out)
+        vel_out = torch.empty_like(u_out)
+        imp_out = torch.empty((B,), dtype=torch.float32, device=device)
+        cost_out = torch.empty_like(imp_out)
+        gnorm_out = torch.empty_like(imp_out) if with_grad else None
+        if B > 0:
+            lib = library()
+            params = _params(config, B, K, use_obstacles)
+            consts = device_constant(_constants_on, config, dtype=torch.float32, device=device)
+            n_scratch = lib.mpc_scratch_floats(ctypes.byref(params))
+            if n_scratch < 0:
+                err = -n_scratch
+            else:
+                scratch = (torch.empty(n_scratch, dtype=torch.float32, device=device)
+                           if n_scratch else None)
+                err = lib.mpc_solve_launch(
+                    ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
+                    p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
+                    mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
+                    u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
+                    imp_out.data_ptr(), cost_out.data_ptr(),
+                    None if gnorm_out is None else gnorm_out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), stream,
+                )
+            if err != 0:
+                raise RuntimeError(
+                    f"mpc_solve launch failed: CUDA error {err} "
+                    f"({lib.mpc_error_string(err).decode()})"
+                )
+            if stream is not None:
+                LAUNCHES += 1
+            get_metrics().increment("b1_launches", labels={
+                "pass": solve_pass, "steps": lane_stride(N) // 32,
+                "arena": "global" if n_scratch else "shared"})
+
+        def rows(x):
+            return x.reshape(batch_shape + (N, 3))
+
+        out = ThrustSolve(rows(u_out), imp_out.reshape(batch_shape), rows(pos_out), rows(vel_out),
+                          cost_out.reshape(batch_shape),
+                          None if gnorm_out is None else gnorm_out.reshape(batch_shape))
     get_metrics().record(f"b1.wrapper.{solve_pass}", wrapper.ms)
     return out
-
-
-def _run_library(library, config, prob, u_init, use_obstacles, stream, solve_pass,
-                 with_grad) -> tuple:
-    global LAUNCHES
-    device = u_init.device
-    N = config.prediction_horizon
-    batch_shape = tuple(u_init.shape[:-2])
-    B = math.prod(batch_shape)
-    K = prob.obstacles.shape[-2]
-
-    def flat(x, trailing):
-        x = x.to(torch.float32).expand(batch_shape + trailing)
-        return x.reshape((B,) + trailing).contiguous()
-
-    u0 = flat(u_init, (N, 3))
-    p0 = flat(prob.p0, (3,))
-    v0 = flat(prob.v0, (3,))
-    if prob.goal.ndim == prob.p0.ndim + 1:  # per-step reference
-        goal = flat(prob.goal, (N, 3))
-    else:
-        goal = flat(prob.goal, (3,))[:, None, :].expand(B, N, 3).contiguous()
-    obs = flat(prob.obstacles, (K, 4))
-    mask = flat(prob.obstacle_mask, (K,))
-    vcap = None if prob.v_cap is None else flat(prob.v_cap, ())
-
-    u_out = torch.empty((B, N, 3), dtype=torch.float32, device=device)
-    pos_out = torch.empty_like(u_out)
-    vel_out = torch.empty_like(u_out)
-    imp_out = torch.empty((B,), dtype=torch.float32, device=device)
-    cost_out = torch.empty_like(imp_out)
-    gnorm_out = torch.empty_like(imp_out) if with_grad else None
-    if B > 0:
-        lib = library()
-        params = _params(config, B, K, use_obstacles)
-        consts = device_constant(_constants_on, config, dtype=torch.float32, device=device)
-        n_scratch = lib.mpc_scratch_floats(ctypes.byref(params))
-        if n_scratch < 0:
-            err = -n_scratch
-        else:
-            scratch = (torch.empty(n_scratch, dtype=torch.float32, device=device)
-                       if n_scratch else None)
-            err = lib.mpc_solve_launch(
-                ctypes.byref(params), consts.data_ptr(), u0.data_ptr(),
-                p0.data_ptr(), v0.data_ptr(), goal.data_ptr(), obs.data_ptr(),
-                mask.data_ptr(), None if vcap is None else vcap.data_ptr(),
-                u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
-                imp_out.data_ptr(), cost_out.data_ptr(),
-                None if gnorm_out is None else gnorm_out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"mpc_solve launch failed: CUDA error {err} "
-                f"({lib.mpc_error_string(err).decode()})"
-            )
-        if stream is not None:
-            LAUNCHES += 1
-        from dart_planner_tpu_torch.common.metrics import get_metrics  # common shares ops' layer
-
-        get_metrics().increment("b1_launches", labels={
-            "pass": solve_pass, "steps": lane_stride(N) // 32,
-            "arena": "global" if n_scratch else "shared"})
-
-    def rows(x):
-        return x.reshape(batch_shape + (N, 3))
-
-    out = (rows(u_out), imp_out.reshape(batch_shape), rows(pos_out), rows(vel_out),
-           cost_out.reshape(batch_shape))
-    return out if gnorm_out is None else out + (gnorm_out.reshape(batch_shape),)

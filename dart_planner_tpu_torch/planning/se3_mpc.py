@@ -9,11 +9,14 @@ cone, thrust norm) with Gauss-Newton then full-curvature blocks, and a
 fixed iteration budget with per-scenario convergence masks, so one code
 path serves a single solve and a 100k-scenario batch.
 
-:func:`solve` picks the solver path by device: ``method="auto"`` runs the
-hand-written CUDA kernel (:mod:`..ops.cuda_mpc`) when the problem's tensors
-are on a GPU, and the plain PyTorch Newton loop (:func:`solve_se3_mpc`)
-when they are on the CPU. ``"torch"`` forces the plain loop on any device;
-``"cuda"`` on CPU tensors raises.
+:func:`solve` picks the solver path by device, in :func:`solve_once`
+alone: ``method="auto"`` runs the hand-written CUDA kernel
+(:func:`..ops.cuda_mpc.solve_thrusts_fused`) when the problem's tensors are
+on a GPU, and its plain PyTorch twin (:func:`solve_thrusts_plain`, the
+Newton loop of :func:`_newton_iterate`) when they are on the CPU.
+``"torch"`` forces the plain loop on any device; ``"cuda"`` on CPU tensors
+raises. Both return a :class:`~..ops.cuda_mpc.ThrustSolve`, which
+:func:`_finalize` turns into a :class:`SolveResult`.
 """
 
 from __future__ import annotations
@@ -439,6 +442,28 @@ def _newton_iterate(
     return u, min_imp
 
 
+def solve_thrusts_plain(
+    config: SE3MPCConfig,
+    prob: costs.Problem,
+    u_init: Tensor,
+    use_obstacles: bool = True,
+    with_grad: bool = False,
+) -> cuda_mpc.ThrustSolve:
+    """The plain PyTorch twin of :func:`~..ops.cuda_mpc.solve_thrusts_fused`,
+    with its signature and record, on any device: the Newton loop of
+    :func:`_newton_iterate`, then an exact rollout and cost of the final
+    iterate, and with ``with_grad`` its projected-gradient norm from the
+    dense gradient (:func:`projected_grad_norm`)."""
+    if not use_obstacles:
+        prob = _strip_obstacles(prob)
+    u, min_improvement = _newton_iterate(config, prob, u_init, use_obstacles)
+    gvec = _gravity(config, u.dtype, u.device)
+    pos, vel, _ = dynamics.rollout_linear(u, prob.p0, prob.v0, config.dt, config.mass, gvec)
+    cost = costs.condensed_cost(u, prob, config.weights, config.dt, config.mass, gvec)
+    grad_norm = projected_grad_norm(config, prob, u) if with_grad else None
+    return cuda_mpc.ThrustSolve(u, min_improvement, pos, vel, cost, grad_norm)
+
+
 def solve_se3_mpc(
     config: SE3MPCConfig,
     prob: costs.Problem,
@@ -450,10 +475,7 @@ def solve_se3_mpc(
     batched over any leading dims of ``prob``."""
     if not use_obstacles:
         prob = _strip_obstacles(prob)
-    if u_init is None:
-        u_init = initialize_thrusts(config, prob)
-    u, min_improvement = _newton_iterate(config, prob, u_init, use_obstacles)
-    return _finalize(config, prob, u, min_improvement, with_grad=with_grad)
+    return solve_once(config, prob, u_init, use_obstacles, "torch", with_grad)
 
 
 def projected_grad_norm(config: SE3MPCConfig, prob: costs.Problem, u: Tensor) -> Tensor:
@@ -470,65 +492,27 @@ def projected_grad_norm(config: SE3MPCConfig, prob: costs.Problem, u: Tensor) ->
 
 
 @span("mpc.finalize")
-def _finalize(
-    config: SE3MPCConfig,
-    prob: costs.Problem,
-    u: Tensor,
-    min_improvement: Optional[Tensor] = None,
-    with_grad: bool = True,
-    precomputed: Optional[tuple] = None,
-) -> SolveResult:
-    """Diagnostics + dynamics-consistent rollout for a final thrust iterate.
-
-    ``converged`` is ``min_improvement <= ftol`` (the minimum realized
-    relative cost decrease over the final Newton stage); without
-    ``min_improvement`` the projected-gradient norm rule is used.
-    ``precomputed`` = (pos, vel, cost) from the kernel's own final exact
-    rollout and cost pass, and with ``with_grad`` its projected-gradient
-    norm fourth: then no dense gradient is computed here. Each call that
-    returns a norm adds one to the counter ``finalize_grad_norms``, labelled
-    ``source`` ``"kernel"`` (the norm came with ``precomputed``) or
-    ``"dense"`` (:func:`projected_grad_norm` ran here)."""
-    N = config.prediction_horizon
-    dtype, device = u.dtype, u.device
-    gvec = _gravity(config, dtype, device)
-    w = config.weights
-
-    grad_norm = None
-    if with_grad:
-        if precomputed is not None and len(precomputed) > 3:
-            grad_norm, source = precomputed[3], "kernel"
-        else:
-            grad_norm, source = projected_grad_norm(config, prob, u), "dense"
-        get_metrics().increment("finalize_grad_norms", labels={"source": source})
-    if min_improvement is not None:
-        converged = min_improvement <= config.ftol
-    elif grad_norm is not None:
-        converged = grad_norm < config.convergence_tolerance * 3 * N
-    else:
-        raise ValueError("with_grad=False requires min_improvement")
-
-    if precomputed is not None:
-        pos, vel, cost = precomputed[:3]
-        acc = u / config.mass + gvec
-    else:
-        pos, vel, acc = dynamics.rollout_linear(
-            u, prob.p0, prob.v0, config.dt, config.mass, gvec
-        )
-        cost = costs.condensed_cost(u, prob, w, config.dt, config.mass, gvec)
+def _finalize(config: SE3MPCConfig, out: cuda_mpc.ThrustSolve) -> SolveResult:
+    """The :class:`SolveResult` of one solve of the thrusts: its rollout,
+    cost and norm as they came, the accelerations ``u / m + g`` of its
+    thrusts, and ``converged`` where ``min_improvement <= ftol`` (the
+    minimum realized relative cost decrease over the final Newton
+    stage)."""
+    u = out.thrusts
+    gvec = _gravity(config, u.dtype, u.device)
     return SolveResult(
         thrusts=u,
-        positions=pos,
-        velocities=vel,
-        accelerations=acc,
-        cost=cost,
-        converged=converged,
-        grad_norm=grad_norm,
-        min_improvement=min_improvement,
+        positions=out.positions,
+        velocities=out.velocities,
+        accelerations=dynamics.accel_from_thrust(u, config.mass, gvec),
+        cost=out.cost,
+        converged=out.min_improvement <= config.ftol,
+        grad_norm=out.grad_norm,
+        min_improvement=out.min_improvement,
     )
 
 
-def _solve_once(
+def solve_once(
     config: SE3MPCConfig,
     prob: costs.Problem,
     u_init: Optional[Tensor],
@@ -537,19 +521,25 @@ def _solve_once(
     with_grad: bool = True,
     solve_pass: str = "phase1",
 ) -> SolveResult:
-    """One fixed-budget solve on the selected path (no tail refinement);
-    ``solve_pass`` names the pass of :func:`solve` for kernel B1's launch
-    counter. On the kernel's path the projected-gradient norm, where asked
-    for, comes from the kernel's launch."""
-    if method == "torch":
-        return solve_se3_mpc(config, prob, u_init, use_obstacles, with_grad=with_grad)
+    """One fixed-budget solve (no tail refinement) on the path ``method``
+    picks (:func:`resolve_method`): kernel B1 or its plain twin, from
+    ``u_init`` or the cold start. ``solve_pass`` names the pass of
+    :func:`solve` for kernel B1's launch counter. With ``with_grad`` the
+    result carries the projected-gradient norm, from the kernel's launch
+    on its path, and the counter ``finalize_grad_norms`` adds one under the
+    label ``source``: ``"kernel"`` there, ``"dense"`` on the plain path."""
+    method = resolve_method(prob, method)
     if u_init is None:
         u_init = initialize_thrusts(config, prob)
-    u, min_improvement, *rest = cuda_mpc.solve_thrusts_fused(
-        config, prob, u_init, use_obstacles=use_obstacles, solve_pass=solve_pass,
-        with_grad=with_grad,
-    )
-    return _finalize(config, prob, u, min_improvement, with_grad=with_grad, precomputed=rest)
+    if method == "torch":
+        out = solve_thrusts_plain(config, prob, u_init, use_obstacles, with_grad)
+    else:
+        out = cuda_mpc.solve_thrusts_fused(config, prob, u_init, use_obstacles=use_obstacles,
+                                           solve_pass=solve_pass, with_grad=with_grad)
+    if with_grad:
+        get_metrics().increment("finalize_grad_norms", labels={
+            "source": "dense" if method == "torch" else "kernel"})
+    return _finalize(config, out)
 
 
 def _flatten_batch(prob: costs.Problem, res: SolveResult):
@@ -620,7 +610,7 @@ def _compact_resolve(
         return None if x is None else x[idx]
 
     prob_t = costs.Problem(*[take(x) for x in prob_f])
-    ref = _solve_once(
+    ref = solve_once(
         cfg_c, prob_t, u_start_f[idx], use_obstacles, method, with_grad=False,
         solve_pass=solve_pass,
     )
@@ -763,7 +753,7 @@ def solve(
     method = resolve_method(prob, method)
     if not use_obstacles:
         prob = _strip_obstacles(prob)
-    res = _solve_once(config, prob, u_init, use_obstacles, method)
+    res = solve_once(config, prob, u_init, use_obstacles, method)
     if config.tail_iterations > 0:
         res = _tail_refine(config, prob, res, use_obstacles, method)
     if config.restart_iterations > 0:

@@ -101,17 +101,6 @@ def resolve_method(method: str, device: torch.device) -> str:
     return method
 
 
-def uses_tick_block(config: ClosedLoopConfig, method: str, batch_shape,
-                    device: torch.device) -> bool:
-    """Whether a ``method`` episode runs the packed tick block: every
-    ``"fused"`` episode does, on either device, whatever its controller
-    configuration, ticks a replan or batch shape (kernel B2 takes them all;
-    on CPU tensors its plain version runs). ``"torch"`` runs the per-tick
-    loop. The arguments other than ``method`` are those of the dispatch, so
-    that callers read it from one place."""
-    return method == "fused"
-
-
 def _with_margins(mpc, obs: Tensor, mask: Tensor, goal: Tensor, clamped: bool) -> Tensor:
     """Add the (optionally goal-clamped) safety margin to active radii.
     ``obs`` carries the episode batch already, so per-episode goals
@@ -214,7 +203,7 @@ def simulate_episode(
     kw = dict(dtype=dtype, device=device)
     batch_shape = tuple(pos0.shape[:-1])
     method = resolve_method(method, device)
-    use_tick_kernel = uses_tick_block(config, method, batch_shape, device)
+    use_tick_kernel = method == "fused"
     if use_tick_kernel and len(batch_shape) != 1:
         return _flat_episode(
             config, generator, state0, goal, obstacles, obstacle_mask, method,

@@ -20,11 +20,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dart_planner_tpu_torch.common import frames
 from dart_planner_tpu_torch.common.device import resolve_device
 from dart_planner_tpu_torch.common.types import DroneState
 from dart_planner_tpu_torch.control import geometric
-from dart_planner_tpu_torch.ops import costs, cuda_mpc, cuda_rollout
+from dart_planner_tpu_torch.ops import costs, cuda_rollout
 from dart_planner_tpu_torch.perception.mapper import GeometricMapper
 from dart_planner_tpu_torch.planning import se3_mpc
 from dart_planner_tpu_torch.sim import closed_loop
@@ -120,14 +119,13 @@ def figure8_tracking(
     closed-loop tracking statistics against the analytic reference.
 
     ``method`` as :func:`~.closed_loop.simulate_episode`'s: ``"fused"``
-    runs each replan as one launch of kernel B1
-    (:func:`~..ops.cuda_mpc.solve_thrusts_fused`) and one of kernel B2
-    (:func:`~..ops.cuda_rollout.run_tick_block`, the closed loop's tick:
+    runs each replan as one launch of kernel B1 (through the planner's
+    single-phase :func:`~..planning.se3_mpc.solve_once`) and one of kernel
+    B2 (:func:`~..ops.cuda_rollout.run_tick_block`, the closed loop's tick:
     the same setpoint interpolation, ``compute_control`` and
     ``rigid_body_step``, for any controller configuration: either
     anti-windup method, either yaw convention) on a card, and their plain
-    versions on the CPU (:func:`~.closed_loop.uses_tick_block`).
-    ``"torch"`` is the plain solve and the per-tick
+    versions on the CPU. ``"torch"`` is the plain solve and the per-tick
     loop; ``"auto"`` is ``"fused"`` on a card, ``"torch"`` on the CPU. The
     lemniscate, the plan and the warm start stay on the device: the loop
     makes no host round trip."""
@@ -141,7 +139,7 @@ def figure8_tracking(
         physics_substeps=1, substeps_per_plan=sub_ticks, num_replans=num_replans,
     )
     method = closed_loop.resolve_method(method, device)
-    fused = closed_loop.uses_tick_block(loop, method, (1,), device)
+    fused = method == "fused"
     N = mpc.prediction_horizon
 
     # every replan's per-step goals and the reference after its block, in
@@ -159,7 +157,6 @@ def figure8_tracking(
     u = torch.tensor([0.0, 0.0, mpc.hover_thrust], **kw).expand(1, N, 3)
     no_obstacles = torch.zeros((1, 1, 4), **kw)
     no_mask = torch.zeros((1, 1), dtype=torch.bool, device=device)
-    gvec = frames.gravity_vector(frames.WorldFrame.ENU, mpc.gravity, device=device)
     zeros3 = torch.zeros((1, 3), **kw)
     if fused:
         S = cuda_rollout.pack_state(rb, ctrl, cuda_rollout.back_calculation(control))
@@ -172,21 +169,18 @@ def figure8_tracking(
         prob = costs.Problem(p0=p_now, v0=v_now, goal=goals[k][None],
                              obstacles=no_obstacles, obstacle_mask=no_mask)
         u_start = se3_mpc.shift_warm_start(mpc, u)
+        res = se3_mpc.solve_once(mpc, prob, u_start, False, "auto" if fused else "torch",
+                                 with_grad=False)
+        u = res.thrusts
         if fused:
-            u, _, pos, vel, _ = cuda_mpc.solve_thrusts_fused(
-                mpc, prob, u_start, use_obstacles=False
-            )
             spp, spv, spa = cuda_rollout.setpoints_from_plan(
-                pos, vel, u / mpc.mass + gvec, sub_ticks, control_dt, mpc.dt
+                res.positions, res.velocities, res.accelerations, sub_ticks, control_dt, mpc.dt
             )
             S, _ = cuda_rollout.run_tick_block(
                 control, physics, control_dt, sub_ticks, 1, S, spp, spv, spa, goal_wind
             )
             positions.append(S[0:3, 0])
         else:
-            res = se3_mpc.solve_se3_mpc(mpc, prob, u_start, use_obstacles=False,
-                                        with_grad=False)
-            u = res.thrusts
             rb, ctrl, clock, _ = closed_loop._tick_loop(
                 loop, rb, ctrl, clock, res, zeros3, zeros3, None, None
             )

@@ -9,7 +9,7 @@ are compiled (C++20) as two translation units against
 its one ``<<<...>>>`` launch becomes a call of the header's launcher;
 ``-mfma -ffp-contract=fast`` contracts into FMAs as nvcc does, square roots
 and divisions stay IEEE as nvcc's defaults. A 16-scenario round at N=128
-takes a few seconds.
+takes about a tenth of a second (the build, about six).
 """
 
 import ctypes
@@ -22,20 +22,14 @@ import pytest
 
 from dart_planner_tpu_torch.ops import _build, cuda_mpc
 
-# what the emulation header declares: the shared memory, in each of the
-# kernel's translation units, and the globals, once
+# the shared memory, in each of the kernel's translation units, and the
+# setter of the emulated card's opt-in shared memory, once
 _EMULATION_SMEM = """
 namespace { float smem[1 << 22]; }
 """
 _EMULATION_GLOBALS = """
 #include <cuda_runtime.h>
-int emu_smem_optin = 232448;
 extern "C" void emu_set_smem_optin(int bytes) { emu_smem_optin = bytes; }
-thread_local uint3 threadIdx, blockIdx;
-static std::barrier<> emu_barrier(32);
-std::barrier<>* emu_warp = &emu_barrier;
-float emu_buf[32];
-unsigned emu_bits[32];
 """
 
 
@@ -52,7 +46,7 @@ def build_emulated_library(out: pathlib.Path) -> ctypes.CDLL:
     shutil.copy(_build.SRC_DIR / "mpc_solve_steps.cu", out)
     (out / "emulation.cpp").write_text(_EMULATION_GLOBALS)
     subprocess.run([gxx, "-std=c++20", "-O2", "-mfma", "-ffp-contract=fast", "-fPIC",
-                    "-shared", "-pthread", f"-I{_build.SRC_DIR / 'emulation'}",
+                    "-shared", f"-I{_build.SRC_DIR / 'emulation'}",
                     "-o", str(out / "libmpc_solve.so"), "-x", "c++",
                     *(str(out / f) for f in ("mpc_solve.cu", "mpc_solve_steps.cu",
                                              "emulation.cpp"))],

@@ -65,6 +65,13 @@ STATES = [((0.2, -0.1, 2.0), (0.3, 0.0, 0.1)), ((0.2, -0.1, 2.0), (0.3, 0.0, 0.1
           ((8.0, 2.0, 4.0), (0.5, 0.2, 0.0))]
 
 
+def _cost(config, prob, u) -> float:
+    """The float32 cost of thrusts ``u`` on ``prob``: the solve's own
+    (``costs.condensed_cost`` under the solver's gravity)."""
+    g = T._gravity(config, u.dtype, u.device)
+    return float(T.costs.condensed_cost(u, prob, config.weights, config.dt, config.mass, g))
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -119,9 +126,9 @@ def test_cloud_plans_match_jax():
             # both thrust plans costed on the port's problem, and the plans
             planner = tc.se3_planner
             prob = planner._problem(tc.last_state)
-            c_t = float(T._finalize(planner.config, prob, planner.last_solution).cost)
+            c_t = _cost(planner.config, prob, planner.last_solution)
             u_j = torch.tensor(np.asarray(jc.se3_planner.last_solution, np.float32))
-            c_j = float(T._finalize(planner.config, prob, u_j).cost)
+            c_j = _cost(planner.config, prob, u_j)
             assert abs(c_t - c_j) <= 1e-4 * abs(c_j), (c_t, c_j)
             np.testing.assert_allclose(tt["positions"], jt["positions"], atol=1e-2)
         assert len(tc.se3_planner.obstacles) == 8  # the last state sees the spheres

@@ -106,10 +106,10 @@ def test_kernel_norm_matches_the_dense_formula_and_leaves_the_outputs(emulated_l
     args = (lambda: emulated_library, config, prob, u0, True, None)
     with_norm = cuda_mpc.run_library(*args, with_grad=True)
     without = cuda_mpc.run_library(*args)
-    assert len(with_norm) == 6 and len(without) == 5
-    for a, b in zip(with_norm, without):
+    assert with_norm.grad_norm is not None and without.grad_norm is None
+    for a, b in zip(with_norm[:5], without[:5]):
         assert torch.equal(a, b)
-    u, norm = with_norm[0], with_norm[5]
+    u, norm = with_norm.thrusts, with_norm.grad_norm
     act = _active(config, prob, u)
     assert all(n > 0 for n in act.values()), act
     torch.testing.assert_close(norm.double(), _exact_norm(config, prob, u), rtol=1e-3,

@@ -44,6 +44,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = T.SE3MPCConfig(max_iterations=4, gn_warmup_iterations=2, tail_iterations=0)
 
 
+def _cost(config, prob, u) -> float:
+    """The float32 cost of thrusts ``u`` on ``prob``: the solve's own
+    (``costs.condensed_cost`` under the solver's gravity)."""
+    g = T._gravity(config, u.dtype, u.device)
+    return float(T.costs.condensed_cost(u, prob, config.weights, config.dt, config.mass, g))
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -327,6 +334,6 @@ def test_demo_engine_replan_matches_jax(name):
     start = DroneState.create(position=web_demo.DEMO_SCENARIOS[name]["start_pos"], device="cpu")
     prob = te.planner._problem(start)
     u_j = torch.tensor(np.asarray(je.planner.last_solution, np.float32))
-    c_t = float(T._finalize(te.planner.config, prob, te.planner.last_solution).cost)
-    c_j = float(T._finalize(te.planner.config, prob, u_j).cost)
+    c_t = _cost(te.planner.config, prob, te.planner.last_solution)
+    c_j = _cost(te.planner.config, prob, u_j)
     assert abs(c_t - c_j) <= 1e-4 * abs(c_j), (c_t, c_j)

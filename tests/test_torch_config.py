@@ -251,8 +251,12 @@ def test_to_se3_config_equals_the_jax_packages(monkeypatch, env):
 
 
 def _finalized_cost(planner, state, u) -> float:
-    prob = planner._problem(state)
-    return float(T._finalize(planner.config, prob, u).cost)
+    """The float32 cost of thrusts ``u`` on the planner's problem at
+    ``state``: the solve's own (``costs.condensed_cost`` under the solver's
+    gravity)."""
+    prob, config = planner._problem(state), planner.config
+    g = T._gravity(config, u.dtype, u.device)
+    return float(T.costs.condensed_cost(u, prob, config.weights, config.dt, config.mass, g))
 
 
 @pytest.mark.parametrize("horizon", [None, "100"], ids=["default", "N100"])

@@ -1,6 +1,6 @@
 """The port's solver kernel module (dart_planner_tpu_torch/ops/cuda_mpc.py).
 
-On the CPU: the plain version ``solve_thrusts_plain`` is held against the JAX
+On the CPU: the plain twin ``se3_mpc.solve_thrusts_plain`` is held against the JAX
 package's fused Pallas kernel (interpret mode) and its XLA path on the same
 numpy inputs; the kernel's constant block is checked by applying it the way
 the kernel does, at one to eight horizon steps a lane and with any count of
@@ -52,7 +52,7 @@ def _arrays(rng, batch, n_obs=3, goal_sd=3.0):
 
 
 def _plain(config, prob, u0, use_obstacles=True):
-    return cuda_mpc.solve_thrusts_plain(config, prob, u0, use_obstacles)
+    return T.solve_thrusts_plain(config, prob, u0, use_obstacles)
 
 
 def _jax():
@@ -81,7 +81,7 @@ def test_plain_convex_parity_with_fused_and_xla():
     J, pallas_mpc, _ = _jax()
     rng = np.random.default_rng(0)
     jcfg, pj, pt, u0 = _both(CONVEX, _arrays(rng, 4), use_obstacles=False)
-    u, imp, pos, vel, cost = _plain(CONVEX, pt, torch.tensor(u0), False)
+    u, imp, pos, vel, cost, _ = _plain(CONVEX, pt, torch.tensor(u0), False)
     uf, impf, posf, velf, costf = pallas_mpc.solve_thrusts_fused(
         jcfg, pj, u0, use_obstacles=False, block_b=8, interpret=True
     )
@@ -97,7 +97,7 @@ def test_plain_obstacle_aggregate_quality():
     J, pallas_mpc, _ = _jax()
     rng = np.random.default_rng(1)
     jcfg, pj, pt, u0 = _both(CFG, _arrays(rng, 16))
-    u, _, _, _, cost = _plain(CFG, pt, torch.tensor(u0))
+    u, _, _, _, cost, _ = _plain(CFG, pt, torch.tensor(u0))
     cp = cost.numpy()
     c0 = np.asarray(J._finalize(jcfg, pj, u0).cost, np.float32)
     assert np.all(cp <= c0 + 1e-3)  # every scenario descends
@@ -141,21 +141,24 @@ def test_plain_uniform_vcap_matches_static():
     vcap = torch.full((16,), CFG.max_velocity)
     r0 = _plain(CFG, prob, u0)
     r1 = _plain(CFG, prob._replace(v_cap=vcap), u0)
-    for a, b in zip(r0, r1):
+    for a, b in zip(r0[:5], r1[:5]):
         assert torch.equal(a, b)
 
 
 def test_fused_wrapper_on_cpu_runs_plain_and_counts_nothing():
+    """The wrapper launches the kernel or raises: on CPU tensors it refuses,
+    naming the plain twin, and counts no launch (``LAUNCHES`` and
+    ``b1_launches`` stay)."""
+    from dart_planner_tpu_torch.common.metrics import get_metrics
+
     rng = np.random.default_rng(2)
     p0, v0, goal, obs = _arrays(rng, 3)
     prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG, device="cpu")
     u0 = T.initialize_thrusts(CFG, prob)
-    before = cuda_mpc.LAUNCHES
-    fused = cuda_mpc.solve_thrusts_fused(CFG, prob, u0)
-    plain = _plain(CFG, prob, u0)
-    assert cuda_mpc.LAUNCHES == before
-    for a, b in zip(fused, plain):
-        assert torch.equal(a, b)
+    before = cuda_mpc.LAUNCHES, get_metrics().series("b1_launches")
+    with pytest.raises(ValueError, match="solve_thrusts_plain"):
+        cuda_mpc.solve_thrusts_fused(CFG, prob, u0)
+    assert (cuda_mpc.LAUNCHES, get_metrics().series("b1_launches")) == before
 
 
 @pytest.mark.parametrize("N", [8, 12, 20, 40, 65, 96, 97, 128, 129, 160, 256])
@@ -241,19 +244,20 @@ def test_kernel_takes_twelve_alphas(N):
 
 
 def test_fused_wrapper_on_cpu_returns_the_plain_norm():
-    """With ``with_grad`` the CPU branch returns the plain solve's outputs
-    and, sixth, the dense projected-gradient norm of its thrusts; the first
-    five equal those without it."""
+    """The plain twin returns the wrapper's record: with ``with_grad`` it
+    carries the dense projected-gradient norm of its thrusts, and its other
+    fields equal those without it, whose norm is ``None``."""
     rng = np.random.default_rng(4)
     p0, v0, goal, obs = _arrays(rng, 3)
     prob = T.make_problem(p0, v0, goal, obstacles=obs, config=CFG, device="cpu")
     u0 = T.initialize_thrusts(CFG, prob)
-    fused = cuda_mpc.solve_thrusts_fused(CFG, prob, u0, with_grad=True)
+    with_norm = T.solve_thrusts_plain(CFG, prob, u0, with_grad=True)
     plain = _plain(CFG, prob, u0)
-    assert len(fused) == 6
-    for a, b in zip(fused, plain):
+    assert isinstance(with_norm, cuda_mpc.ThrustSolve) and plain.grad_norm is None
+    for a, b in zip(with_norm[:5], plain[:5]):
         assert torch.equal(a, b)
-    assert torch.equal(fused[5], T.projected_grad_norm(CFG, prob, fused[0]))
+    assert torch.equal(with_norm.grad_norm,
+                       T.projected_grad_norm(CFG, prob, with_norm.thrusts))
 
 
 # --- on a CUDA device: the hand-written kernel against the plain loop ------
@@ -280,8 +284,8 @@ def _kernel_vs_plain(config, prob, use_obstacles=True):
     k = cuda_mpc.solve_thrusts_fused(config, prob, u0, use_obstacles)
     torch.cuda.synchronize()
     assert cuda_mpc.LAUNCHES == before + 1
-    p = cuda_mpc.solve_thrusts_plain(config, prob, u0, use_obstacles)
-    return u0, [x.cpu() for x in k], [x.cpu() for x in p]
+    p = T.solve_thrusts_plain(config, prob, u0, use_obstacles)
+    return u0, [x.cpu() for x in k[:5]], [x.cpu() for x in p[:5]]
 
 
 @pytest.mark.cuda
@@ -514,7 +518,7 @@ def test_cuda_kernel_uniform_vcap_is_static_and_cap_binds(cuda_device):
     r0 = cuda_mpc.solve_thrusts_fused(config, prob, u0)
     full = torch.full((64,), config.max_velocity, device=cuda_device)
     r1 = cuda_mpc.solve_thrusts_fused(config, prob._replace(v_cap=full), u0)
-    for a, b in zip(r0, r1):
+    for a, b in zip(r0[:5], r1[:5]):
         assert torch.equal(a, b)
     cap = torch.full((64,), 2.0, device=cuda_device)
     r2 = cuda_mpc.solve_thrusts_fused(config, prob._replace(v_cap=cap), u0)
@@ -541,7 +545,7 @@ def test_cuda_kernel_shapes_and_shared_fields(cuda_device):
     u0 = T.initialize_thrusts(config, copied)
     a = cuda_mpc.solve_thrusts_fused(config, shared, u0)
     b = cuda_mpc.solve_thrusts_fused(config, copied, u0)
-    for x, y in zip(a, b):
+    for x, y in zip(a[:5], b[:5]):
         assert torch.equal(x, y)
     grid = T.costs.Problem(*[None if x is None else x.reshape((2, 3) + x.shape[1:])
                              for x in prob])
@@ -605,8 +609,9 @@ def test_cuda_solve_takes_the_kernels_grad_norm(cuda_device, monkeypatch):
     res = T.solve(config, prob, warm)
     torch.cuda.synchronize()
     assert cuda_mpc.LAUNCHES == before + 2
-    assert [len(out) for out in launches] == [6, 5]  # phase 1 with the norm, the tail without
-    assert torch.equal(res.grad_norm, launches[0][5])
+    # phase 1 with the norm, the tail without
+    assert [out.grad_norm is not None for out in launches] == [True, False]
+    assert torch.equal(res.grad_norm, launches[0].grad_norm)
     u = launches[0][0]
     p64 = type(prob)(*[x.double() if x is not None and x.dtype.is_floating_point else x
                        for x in prob])

@@ -84,7 +84,7 @@ def test_cuda_b1_on_the_second_card(two_cards):
     k = cuda_mpc.solve_thrusts_fused(ONE_ROUND, prob, u0)
     torch.cuda.synchronize(card1)
     assert cuda_mpc.LAUNCHES == before + 1
-    p = cuda_mpc.solve_thrusts_plain(ONE_ROUND, prob, u0)
+    p = se3_mpc.solve_thrusts_plain(ONE_ROUND, prob, u0)
     assert k[0].device == card1
     torch.testing.assert_close(k[0], p[0], atol=2e-3, rtol=0)
 

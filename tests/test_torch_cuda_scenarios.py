@@ -220,7 +220,7 @@ def test_cuda_fleet_at_an_odd_batch_with_an_nccl_world_of_one(cuda_device):
         cfg = cfg._replace(max_iterations=1, cg_iterations=2)
         u0 = se3_mpc.initialize_thrusts(config, pr)
         k = cuda_mpc.solve_thrusts_fused(cfg, pr, u0)
-        p = cuda_mpc.solve_thrusts_plain(cfg, pr, u0)
+        p = se3_mpc.solve_thrusts_plain(cfg, pr, u0)
         for d, lim in [((k[i] - p[i]).abs(), 2e-3) for i in (0, 2, 3)] + [
                 ((k[4] - p[4]).abs() / p[4].abs(), 1e-4)]:
             assert float((d > lim).float().mean()) <= 1e-4

@@ -4,7 +4,10 @@ applied to the PyTorch port by AST scan, with no module imported:
 1. module-level imports respect the layer ranks (a subpackage imports only
    subpackages of strictly lower rank; the same subpackage is free);
 2. ``common``/``ops``/``planning``/``control`` never import
-   ``hardware``/``comms``/``apps``, not even lazily inside a function.
+   ``hardware``/``comms``/``apps``, not even lazily inside a function;
+3. ``ops``, the kernels' wrappers, imports no subpackage of higher rank,
+   not even lazily inside a function: the solve's seam with kernel B1
+   points one way, from ``planning`` down to ``ops``.
 
 The ranks are the JAX package's own (``RANK`` there), so the port keeps its
 reference's layering; a subpackage the port adds must be ranked there too.
@@ -130,6 +133,15 @@ def test_core_never_touches_hardware_even_lazily(sub):
         f"{where}: {s} imports {target}"
         for s, target, _, where in _scan()
         if s == sub and target in FORBIDDEN_FOR_CORE
+    ]
+    assert not violations, "\n".join(violations)
+
+
+def test_ops_imports_no_higher_rank_even_lazily():
+    violations = [
+        f"{where}: ops (rank {RANK['ops']}) imports {target} (rank {RANK.get(target)})"
+        for s, target, _, where in _scan()
+        if s == "ops" and RANK.get(target, 99) > RANK["ops"]
     ]
     assert not violations, "\n".join(violations)
 

@@ -15,8 +15,8 @@ CPU, against the JAX package.
   package's front door accepts (the ``le`` bound of ``prediction_horizon``
   in both frozen configs) and any N >= 1 beyond.
 - The kernel's own source, compiled for the CPU by g++ against
-  ``csrc/emulation/cuda_runtime.h`` (each lane a thread; shuffles and
-  ballots through a buffer and a barrier), runs one Newton round
+  ``csrc/emulation/cuda_runtime.h`` (a warp's lanes take turns on one
+  CPU thread; shuffles and ballots meet through a buffer), runs one Newton round
   at CG-2 at one to eight steps a lane against the plain loop: thrusts
   within 2e-3 (float32 sums in another order), positions and velocities
   within 1e-4 of the exact (float64) rollout of its own thrusts, its cost
@@ -115,7 +115,7 @@ def test_kernel_horizon_covers_the_front_door(module, emulated_library):
         prob = _bench_problem(config, 1, N)
         u0 = T.initialize_thrusts(config, prob)
         out = cuda_mpc.run_library(lambda: emulated_library, config, prob, u0, True, None)
-        assert out[0].shape == (1, N, 3) and all(bool(torch.isfinite(x).all()) for x in out)
+        assert out[0].shape == (1, N, 3) and all(bool(torch.isfinite(x).all()) for x in out[:5])
         # the round keeps the cold start unless a candidate is cheaper
         assert float(out[4]) <= float(cuda_mpc.exact_cost(config, prob, u0)) * (1 + 1e-5)
 
@@ -141,7 +141,7 @@ def _emulated_round(library, config, batch=16):
     prob = _bench_problem(config, batch, config.prediction_horizon)
     u0 = T.initialize_thrusts(config, prob)
     k = cuda_mpc.run_library(lambda: library, config, prob, u0, True, None)
-    p = cuda_mpc.solve_thrusts_plain(config, prob, u0)
+    p = T.solve_thrusts_plain(config, prob, u0)
     torch.testing.assert_close(k[0], p[0], rtol=0, atol=2e-3)
     # the smallest relative improvement, (cost(u0) - cost(u)) / (1 + |cost(u)|),
     # which decides the converged flags: to 1e-4 of 1 + |improvement|, as far
@@ -213,15 +213,17 @@ def test_emulated_kernel_global_arena_matches_shared(emulated_library):
         spilled, _ = _emulated_round(emulated_library, config, batch=8)
     finally:
         emulated_library.emu_set_smem_optin(232448)
-    for a, b in zip(shared, spilled):
+    for a, b in zip(shared[:5], spilled[:5]):
         assert torch.equal(a, b)
 
 
-def test_run_library_counts_a_launch_on_a_stream(emulated_library):
+def test_run_library_counts_a_launch_on_a_stream(emulated_library, monkeypatch):
     """``LAUNCHES`` rises where the kernel is launched, in ``run_library``,
     so every caller of it counts: once a launch on a stream (0 is the
     default CUDA stream), never for a library built for the CPU
-    (``stream=None``) or an empty batch."""
+    (``stream=None``) or an empty batch. The counter is restored after the
+    test: a later test in the same process may read it whole."""
+    monkeypatch.setattr(cuda_mpc, "LAUNCHES", cuda_mpc.LAUNCHES)
     config = T.SE3MPCConfig(prediction_horizon=20, max_iterations=1, cg_iterations=2,
                             tail_iterations=0)
     prob = _bench_problem(config, 2, 20)
@@ -238,5 +240,5 @@ def test_run_library_counts_a_launch_on_a_stream(emulated_library):
     on_stream, n_stream = launch(2, 0)
     _, n_empty = launch(0, 0)
     assert (n_cpu, n_stream, n_empty) == (0, 1, 0)
-    for a, b in zip(on_cpu, on_stream):
+    for a, b in zip(on_cpu[:5], on_stream[:5]):
         assert torch.equal(a, b)

@@ -294,45 +294,52 @@ def _rose(before, after):
 
 @pytest.mark.parametrize("given", ["kernel", "none", "plain"])
 def test_finalize_takes_a_given_norm_else_runs_the_dense_gradient(monkeypatch, given):
-    """``_finalize`` with a norm as ``precomputed``'s fourth entry (the
-    kernel's, from its launch) returns that norm and runs no dense gradient
-    (``condensed_grad`` raises here). With a ``precomputed`` of three (no
-    norm came back) and on the plain path it runs ``condensed_grad`` once,
-    and the norm is the JAX package's. ``finalize_grad_norms`` counts the
-    call under its source."""
+    """``_finalize`` passes a solve's record through: the kernel's norm (a
+    marker here), none where none was asked for, and the plain twin's dense
+    norm, which is the JAX package's. It runs no gradient of its own
+    (``condensed_grad`` raises while it runs) and counts nothing; its
+    accelerations are ``u / m + g`` and ``converged`` is the ftol rule.
+    ``solve_once``, where the solver is chosen, adds one to
+    ``finalize_grad_norms`` under the record's source (``kernel``, ``dense``)
+    and none for a solve without a norm."""
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
     jcfg, pj, prob = _both(CFG, _arrays(5, 4))
     u = T.initialize_thrusts(CFG, prob)
-    imp = torch.zeros(4)
     gvec = torch.tensor([0.0, 0.0, -CFG.gravity])
-    pos, vel, _ = T.dynamics.rollout_linear(u, prob.p0, prob.v0, CFG.dt, CFG.mass, gvec)
-    cost = tcosts.condensed_cost(u, prob, CFG.weights, CFG.dt, CFG.mass, gvec)
-    norm = torch.arange(1.0, 5.0)  # a marker for the kernel's norm
-    calls = []
-    dense = tcosts.condensed_grad
-
-    def counted(*args, **kwargs):
-        calls.append(1)
-        return dense(*args, **kwargs)
+    if given == "plain":
+        # no Newton round: the record's norm is that of the cold start
+        record = T.solve_thrusts_plain(CFG._replace(max_iterations=0), prob, u, with_grad=True)
+    else:
+        pos, vel, _ = T.dynamics.rollout_linear(u, prob.p0, prob.v0, CFG.dt, CFG.mass, gvec)
+        cost = tcosts.condensed_cost(u, prob, CFG.weights, CFG.dt, CFG.mass, gvec)
+        norm = torch.arange(1.0, 5.0) if given == "kernel" else None
+        record = cuda_mpc.ThrustSolve(u, torch.tensor([0.0, 1.0, 0.0, 1.0]), pos, vel, cost,
+                                      norm)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a dense gradient where the norm was given")
+        raise AssertionError("a dense gradient in _finalize")
 
-    monkeypatch.setattr(tcosts, "condensed_grad", refuse if given == "kernel" else counted)
-    before = _norm_sources()
-    if given == "kernel":
-        res = T._finalize(CFG, prob, u, imp, precomputed=(pos, vel, cost, norm))
-    elif given == "none":
-        res = T._finalize(CFG, prob, u, imp, precomputed=(pos, vel, cost))
-    else:
-        res = T._finalize(CFG, prob, u, imp)
-    rose = _rose(before, _norm_sources())
-    if given == "kernel":
-        assert res.grad_norm is norm and rose == {"kernel": 1, "dense": 0}
-    else:
-        assert len(calls) == 1 and rose == {"kernel": 0, "dense": 1}
+    with monkeypatch.context() as m:
+        m.setattr(tcosts, "condensed_grad", refuse)
+        before = _norm_sources()
+        res = T._finalize(CFG, record)
+        assert _rose(before, _norm_sources()) == {"kernel": 0, "dense": 0}
+    assert res.grad_norm is record.grad_norm
+    assert torch.equal(res.positions, record.positions) and torch.equal(res.cost, record.cost)
+    assert torch.equal(res.accelerations, u / CFG.mass + gvec)
+    assert torch.equal(res.converged, record.min_improvement <= CFG.ftol)
+    if given == "plain":
         want = J._finalize(jcfg, pj, u.numpy(), np.zeros(4, np.float32)).grad_norm
         np.testing.assert_allclose(res.grad_norm.numpy(), _np(want), rtol=1e-4, atol=1e-4)
-    assert torch.equal(res.positions, pos) and torch.equal(res.cost, cost)
+    if given == "kernel":
+        monkeypatch.setattr(T, "resolve_method", lambda prob, method: "cuda")
+        monkeypatch.setattr(cuda_mpc, "solve_thrusts_fused", lambda *args, **kwargs: record)
+    before = _norm_sources()
+    out = T.solve_once(CFG, prob, u, True, "torch", with_grad=given != "none")
+    assert _rose(before, _norm_sources()) == {"kernel": int(given == "kernel"),
+                                              "dense": int(given == "plain")}
+    assert (out.grad_norm is None) == (given == "none")
 
 
 def test_plain_solve_counts_one_dense_norm():

@@ -470,12 +470,6 @@ def test_tick_block_scope_runs_plain_on_cpu_and_raises_on_cuda(monkeypatch, fiel
     tensors that is the block's plain version, never the per-tick loop,
     and it flies as the per-tick ("torch") path does. "torch" never takes
     the tick block."""
-    cfg = TL.ClosedLoopConfig()
-    cfg = cfg._replace(control=cfg.control._replace(**control))
-    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-    for device in (cpu, cuda):
-        assert TL.uses_tick_block(cfg, "fused", batch_shape, device)
-        assert not TL.uses_tick_block(cfg, "torch", batch_shape, device)
     _, tcfg = _configs(mpc=JM.SE3MPCConfig(prediction_horizon=8, max_iterations=2,
                                            tail_iterations=0),
                        control=JG.GeometricConfig(mass=1.5, max_thrust=25.0, **control),
@@ -504,10 +498,8 @@ def test_tick_block_scope_holds_the_ticks_a_block_takes(monkeypatch, T, fits):
     the closed loop takes the tick block for any T, and the wrapper splits
     the block (on the CPU, as an H100 would)."""
     monkeypatch.setattr(TL.cuda_rollout, "shared_limit", lambda device: 232448)
-    cfg = TL.ClosedLoopConfig(substeps_per_plan=T)
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     for device in (cpu, cuda):
-        assert TL.uses_tick_block(cfg, "fused", (4,), device)
         chunks = TL.cuda_rollout.tick_chunks(T, device)
         assert chunks == ((T,) if fits else (601, T - 601))
         assert len(chunks) == -(-T // 601) and sum(chunks) == T

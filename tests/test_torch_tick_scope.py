@@ -19,7 +19,8 @@ sim/closed_loop.py).
   final position, minimum distance and tracking RMSE, ``success`` equal).
   A (2, 3) batch flies exactly as the same six episodes flown as (6,).
 - The kernel's own source (``csrc/tick_block.cu``) compiled by g++ against
-  ``csrc/emulation/cuda_runtime.h`` (each thread of a block a CPU thread)
+  ``csrc/emulation/cuda_runtime.h`` (a block's threads take turns on one CPU
+  thread, meeting at each ``__syncthreads``)
   and driven through the wrapper's launch loop: each arm and the chunked
   launches against the plain version at atol 1e-4 + rtol 1e-4 (g++
   contracts into FMAs as nvcc does, the plain version does not), as the
@@ -333,15 +334,6 @@ def test_fused_episode_with_a_replan_past_one_launch_matches_jax_scan(monkeypatc
 _EMULATION_SMEM = """
 namespace { float smem[1 << 22]; }
 """
-_EMULATION_GLOBALS = """
-#include <cuda_runtime.h>
-int emu_smem_optin = 232448;
-thread_local uint3 threadIdx, blockIdx;
-std::barrier<>* emu_warp;
-std::barrier<>* emu_block;
-float emu_buf[32];
-unsigned emu_bits[32];
-"""
 _LAUNCH = "kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>("
 
 
@@ -360,11 +352,10 @@ def emulated_tick_library(tmp_path_factory):
                                  "static_cast<cudaStream_t>(stream), ")
     out = tmp_path_factory.mktemp("tick_emulation")
     (out / "tick_block.cu").write_text(text + _EMULATION_SMEM)
-    (out / "emulation.cpp").write_text(_EMULATION_GLOBALS)
     subprocess.run([gxx, "-std=c++20", "-O2", "-mfma", "-ffp-contract=fast", "-fPIC",
-                    "-shared", "-pthread", f"-I{_build.SRC_DIR / 'emulation'}",
+                    "-shared", f"-I{_build.SRC_DIR / 'emulation'}",
                     "-o", str(out / "libtick_block.so"), "-x", "c++",
-                    str(out / "tick_block.cu"), str(out / "emulation.cpp")],
+                    str(out / "tick_block.cu")],
                    check=True, capture_output=True, text=True)
     return cuda_rollout.bind(ctypes.CDLL(str(out / "libtick_block.so")))
 
