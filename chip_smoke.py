@@ -846,6 +846,18 @@ def b1_alone_ms(config, prob, u0, reps: int = 7) -> float:
                             "mpc_solve_kernel", reps)
 
 
+def b1_arm(config, prob) -> str:
+    """The arm kernel B1 takes for ``prob``: S = ceil(N / 32) steps a lane
+    and the scenarios a warp (the library's ``mpc_scenarios_per_warp``: 4 on
+    the packed arm, N <= 32 past one wave of one scenario a warp)."""
+    from dart_planner_tpu_torch.ops import cuda_mpc
+
+    B = prob.p0.numel() // 3
+    params = cuda_mpc._params(config, B, prob.obstacles.shape[-2], True)
+    per_warp = cuda_mpc._library().mpc_scenarios_per_warp(ctypes.byref(params))
+    return f"S={-(-config.prediction_horizon // 32)}, {per_warp} a warp"
+
+
 # the launch function and wrapper module of each kernel, by kernel name
 _KERNEL_LAUNCHES = {"mpc_solve_kernel": ("mpc_solve_launch", "cuda_mpc"),
                     "tick_block_kernel": ("tick_block_launch", "cuda_rollout")}
@@ -3787,9 +3799,10 @@ def solve_within_spread(tag: str, cfg, prob) -> tuple:
 
 
 def ptxas_by_steps(log: str) -> dict:
-    """Kernel B1's ptxas figures for each instantiation, keyed by the horizon
-    steps a lane S: registers, stack frame and spill bytes, from the
-    ``-Xptxas -v`` lines of the build log."""
+    """Kernel B1's ptxas figures for each instantiation, keyed by its
+    template argument S (the horizon steps a lane, 5 for five or more; 8 + s
+    for the packed arm at s steps a segment's lane): registers, stack frame
+    and spill bytes, from the ``-Xptxas -v`` lines of the build log."""
     import re
 
     out, cur = {}, None
@@ -3918,8 +3931,9 @@ def long_horizon_phase(dev, card: str) -> dict:
 
     ptxas = ptxas_by_steps(_build.build_log)
     if _build.build_log:
-        check(sorted(ptxas) == [1, 2, 3, 4, 5] and all(len(v) == 4 for v in ptxas.values()),
-              f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-5")
+        check(sorted(ptxas) == [1, 2, 3, 4, 5, 9, 10, 11, 12]
+              and all(len(v) == 4 for v in ptxas.values()),
+              f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-5 and the packed 9-12")
     times = {}
     fused, plain = cuda_mpc.solve_thrusts_fused, se3_mpc.solve_thrusts_plain
     for N in TIMED_HORIZONS:
@@ -3933,7 +3947,7 @@ def long_horizon_phase(dev, card: str) -> dict:
             bnd, by = b1_bound(cfg, prob)
             times[f"N{N}_B{B}"] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p, "bound_ms": bnd,
                                    "bound_by": by, "share": bnd / d_k}
-            print(f"[18d times] ({card}) phase-1 solve N={N} (S={-(-N // 32)}) B={B}, median "
+            print(f"[18d times] ({card}) phase-1 solve N={N} ({b1_arm(cfg, prob)}) B={B}, median "
                   f"CUDA-event ms: kernel {t_k:.4f} (alone {d_k:.4f}, CUDA events around the "
                   f"launch), plain "
                   f"{t_p:.4f}, bound {bnd:.3g} ({by}; share of the kernel alone "
@@ -3942,7 +3956,8 @@ def long_horizon_phase(dev, card: str) -> dict:
     times["solves"] = {f"N{N}": v for N, v in solves.items()}
     times["rounds"] = {f"N{N}": v for N, v in rounds.items()}
     print(f"[18 long horizons] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
-          f"B1 ptxas by steps a lane (S=5: five or more, counted at run time): "
+          f"B1 ptxas by steps a lane (S=5: five or more, counted at run time; S=9-12: the "
+          f"packed arm at 1-4 steps a segment's lane): "
           + ("; ".join(f"S={s}: {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "
                        f"{v.get('spill_stores')} / {v.get('spill_loads')} B spill stores / loads"
                        for s, v in sorted(ptxas.items())) or "library reused, no build log"),

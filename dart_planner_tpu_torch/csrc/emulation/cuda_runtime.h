@@ -42,21 +42,28 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMultiProcessorCount };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
 }
-// the opt-in shared memory a block may take: an H100's 232,448 bytes unless
-// the program that links the emulation sets it otherwise
-inline int emu_smem_optin = 232448;
-inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
-  *value = emu_smem_optin;
+// the opt-in shared memory a block may take and the SMs: an H100's 232,448
+// bytes and 132 unless the program that links the emulation sets them
+// otherwise
+inline int emu_smem_optin = 232448, emu_sm_count = 132;
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? emu_sm_count : emu_smem_optin;
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// the CPU has no occupancy to report: the call fails
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
+  *blocks = 0;
+  return cudaErrorInvalidValue;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "CPU emulation"; }
 
 namespace emu {
@@ -143,13 +150,15 @@ struct Stacks {
 }  // namespace emu
 
 inline float __shfl_sync(unsigned, float v, int src) { return emu::exchange(v, src); }
-inline float __shfl_up_sync(unsigned, float v, int d) {
+// with `width` < 32 the warp is cut into segments of that many lanes, and a
+// lane whose source lies outside its own segment keeps its value
+inline float __shfl_up_sync(unsigned, float v, int d, int width = 32) {
   const int l = threadIdx.x & 31;
-  return emu::exchange(v, l >= d ? l - d : l);
+  return emu::exchange(v, (l & (width - 1)) >= d ? l - d : l);
 }
-inline float __shfl_down_sync(unsigned, float v, int d) {
+inline float __shfl_down_sync(unsigned, float v, int d, int width = 32) {
   const int l = threadIdx.x & 31;
-  return emu::exchange(v, l + d < 32 ? l + d : l);
+  return emu::exchange(v, (l & (width - 1)) + d < width ? l + d : l);
 }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   return emu::exchange(v, (threadIdx.x & 31) ^ m);

@@ -48,11 +48,31 @@
 // lane, so every branch decision is warp-uniform. The line search's alphas,
 // any count of them, follow the two step vectors in the constant block.
 //
+// The packed arm (S = kPack + s): up to N = 32, once the batch passes one
+// wave of one scenario a warp, a warp holds four scenarios, each on a
+// segment of 8 lanes, and lane j of a segment holds s = ceil(N / 8)
+// consecutive steps, s j .. s j + s - 1 (at N=20, s=3: 24 slots for 20
+// steps, where one scenario a warp fills 20 of 32 lanes). Its sums are
+// butterflies over the segment (xor 4, 2, 1), which never leave it, so
+// every decision is segment-uniform: the CG's negative-curvature exit
+// freezes the segment's d, r, p and rz, and the warp leaves the loop once
+// all four of its scenarios are frozen (__ballot_sync); the steepest-descent
+// fallback and the line search's strict improvement are per-lane selects;
+// each segment compacts its own live spheres; a segment past the batch runs
+// the last scenario's inputs and writes nothing (it may not return: its
+// warp-mates meet it at every shuffle). No value crosses a segment, so a
+// scenario's outputs do not depend on its warp-mates. At three and four
+// steps a lane its read-mostly data lies in the warp's shared memory as the
+// S = 3 and 4 arms'.
+//
 // The constant maps are structured (ops/dynamics.py): S_v[k,j] = dt and
 // S_p[k,j] = dt^2 (k - j - 1/2) for j < k. So every map is applied as warp
 // scans over the lanes (a shift and 5 __shfl_up_sync / __shfl_down_sync
-// levels), and no N x N map is read anywhere. With E the exclusive prefix
-// sum and F the exclusive suffix sum,
+// levels; on the packed arm a serial sum over a lane's steps, 3 levels over
+// the segment and a shuffle for the carry from the lane below: 4 shuffles
+// an axis serve four scenarios where 6 served one), and no N x N map is
+// read anywhere. With E the exclusive prefix sum and F the exclusive
+// suffix sum,
 //   S_v x = dt E(x),   S_p x = dt^2 (E(x)/2 + E(E(x))),
 //   S_p^T a + S_v^T b = dt^2 (R/2 + F(R)) + dt F(b),  R = F(a),
 // so a map pair is two chained scans per axis, a chain of 12 shuffle levels
@@ -88,15 +108,26 @@
 // ~6k for the solve. On an H100 (700 W) the kernel alone takes ~0.22 ms
 // for one scenario (B=1) and ~0.57 ms for B=4096 (chip_smoke.py phase 7):
 // B=4096 runs as two waves of such chains, ~0.29 ms each, so the 16 warps
-// of an SM slow each other's chain by only about a third.
+// of an SM slow each other's chain by only about a third. Throughput is
+// then the scenarios an SM keeps in flight over one chain: the packed arm
+// holds 48 an SM at N=20 (12 warps), against 16, and its chain is longer
+// (0.41 ms alone: each lane does three steps' work in every per-step pass)
+// but serves four scenarios; B=131,072 takes 11.3 ms against 18.4, ~0.55 ms
+// a wave of 6,336 (an H100; PERF.md).
 //
 // Occupancy: blocks of kWarps<S> warps. At one step a lane, 4 warps and
-// __launch_bounds__ asks for 4 resident blocks (<= 128 registers), so
-// B=4096 is 1024 blocks over 528 slots of 16 warps an SM: two waves, the
-// second 94% full. B=2048 at K=11 (the Monte-Carlo) is under one wave;
-// there the shorter dependent chain is what counts. At two steps, 4 warps
-// and 2 blocks (<= 255 registers); from three on, 2 warps and 4 blocks: 8
-// warps an SM, B=4096 in ~3.9 waves.
+// __launch_bounds__ asks for 4 resident blocks (<= 128 registers): 528
+// slots of 16 warps an SM, one wave of 2,112 scenarios on an H100's 132
+// SMs. Up to one such wave (B=1 and the stacks that plan one vehicle) every
+// scenario is in flight either way, and the shorter dependent chain of one
+// scenario a warp is what counts, so N <= 32 takes the packed arm only past
+// it. At two steps, 4 warps and 2 blocks (<= 255 registers); from three
+// on, 2 warps and 4 blocks: 8 warps an SM, B=4096 in ~3.9 waves. The packed
+// arm runs blocks of 2 warps (8 scenarios): ptxas reads 112 registers at
+// one step a lane (8 blocks asked for), 168 at two (5), 162 at three (6:
+// 12 warps, 48 scenarios an SM, each warp 10.4 KB of shared memory, 6
+// blocks 131 KB of the 228 KB) and 203 at four (4), 0 spill bytes (an
+// H100, CUDA 12.8).
 //
 // Registers bound the steps a lane. Every per-step vector costs S x 3
 // registers, and ptxas read 118 registers at S=1 and 193 at S=2, ~75 more a
@@ -130,8 +161,10 @@
 // product is left large enough for an mma tile, and a TF32 product would
 // break the exact-fp32 rollout); no TMA or cp.async pipeline (each scenario
 // reads ~1.4 KB once); no shared memory for maps (there are none), only
-// each warp's obstacle spheres. Packing two scenarios per warp would fill
-// the lanes only for N <= 16, not at the default N = 20.
+// each scenario's obstacle spheres. Packing is by segments of 8 lanes and
+// consecutive steps a lane, so that it serves every N <= 32 (the default
+// N = 20 included), not only the N <= 16 that two scenarios of 16 lanes a
+// step would fill; past 32 steps one scenario keeps a warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -147,23 +180,40 @@
 
 namespace {
 
-// S = kDyn stands for five or more horizon steps a lane: their count,
-// ceil(N / 32), is read at run time (Arena::n).
+// S names an arm. S = 1..4: one scenario a warp, S = ceil(N / 32) steps a
+// lane. S = kDyn stands for five or more horizon steps a lane: their count,
+// ceil(N / 32), is read at run time (Arena::n). S = kPack + s (s = 1..4) is
+// the packed arm, N <= 32: four scenarios a warp, each on a segment of
+// kSegLanes lanes, s = ceil(N / 8) consecutive steps a lane.
 constexpr int kDyn = 5;
+constexpr int kPack = 8;
+constexpr int kSegLanes = 8;
+template <int S>
+constexpr bool kPacked = S > kPack;
+// Steps a lane (slots): S, or s on the packed arm.
+template <int S>
+constexpr int kSlots = kPacked<S> ? S - kPack : S;
+// Scenarios a warp.
+template <int S>
+constexpr int kPerWarp = kPacked<S> ? 32 / kSegLanes : 1;
 
-// Scenarios (warps) per block at S steps a lane: 4; 2 at three and four,
-// where each warp holds 10-14 KB of shared memory, so a block stays under
-// the 48 KB every launch gets without cudaFuncSetAttribute, and 4 resident
-// blocks still give 8 warps an SM; 1 from five on, where a warp's arena is
+// Warps per block at S steps a lane: 4; 2 at three and four and on the
+// packed arm, where each warp holds 10-14 KB of shared memory from three
+// steps a lane on, so a block stays under the 48 KB every launch gets
+// without cudaFuncSetAttribute; 1 from five on, where a warp's arena is
 // 45.6 KB or more.
 template <int S>
 constexpr int kWarps = S == kDyn ? 1 : (S >= 3 ? 2 : 4);
 // Resident blocks an SM __launch_bounds__ asks for: 4 at one step a lane
 // (<= 128 registers), 2 at two (<= 255), 4 of 2 warps at three and four
 // (<= 255), 16 of one warp from five on (<= 128: a lane keeps only a
-// step's scalars in registers there).
+// step's scalars in registers there). On the packed arm, blocks of 2
+// warps: 8 at one step a lane (<= 128 registers), 5 at two (<= 200), 6 at
+// three (<= 168: 12 warps, 48 scenarios an SM), 4 at four (<= 255).
+constexpr int kPackedBlocks[4] = {8, 5, 6, 4};
 template <int S>
-constexpr int kMinBlocks = S == kDyn ? 16 : (S == 2 ? 2 : 4);
+constexpr int kMinBlocks =
+    kPacked<S> ? kPackedBlocks[kSlots<S> - 1] : (S == kDyn ? 16 : (S == 2 ? 2 : 4));
 constexpr unsigned kFull = 0xffffffffu;
 
 }  // namespace
@@ -185,9 +235,9 @@ namespace {
 // F floats for each of a lane's S steps, read as x[s][f]: registers at one
 // or two steps a lane; from three on, this lane's column of a block of the
 // warp's arena laid out [slot][field][lane].
-template <int S, int F, bool Shared = (S >= 3)>
+template <int S, int F, bool Shared = (kSlots<S> >= 3)>
 struct Steps {
-  float v[S][F];
+  float v[kSlots<S>][F];
   __device__ __forceinline__ float (&operator[](int s))[F] { return v[s]; }
   __device__ __forceinline__ const float (&operator[](int s) const)[F] { return v[s]; }
 };
@@ -219,14 +269,22 @@ struct Steps<kDyn, F, true> {
 template <int S>
 using Vec = Steps<S, 3, S == kDyn>;
 
-// Slots a lane holds: S, or at S = kDyn the count read at run time.
+// Slots a lane holds: kSlots<S>, or at S = kDyn the count read at run time.
 template <int S, class V>
 __device__ __forceinline__ int slots(const V& x) {
   if constexpr (S == kDyn) {
     return x.n;
   } else {
-    return S;
+    return kSlots<S>;
   }
+}
+
+// The horizon step in slot s of lane `lane`: k = lane + 32 s, or on the
+// packed arm, where `lane` is the lane's place in its segment, k = s_n lane
+// + s for s_n steps a lane.
+template <int S>
+__device__ __forceinline__ int step_at(int lane, int s) {
+  return kPacked<S> ? kSlots<S> * lane + s : lane + 32 * s;
 }
 
 // A warp's arena: this lane's column of a region of shared or global memory
@@ -242,7 +300,7 @@ struct Arena {
 
 // The next F fields of every slot of the arena as a Steps<S, F, Shared>
 // (registers take nothing from it).
-template <int S, int F, bool Shared = (S >= 3)>
+template <int S, int F, bool Shared = (kSlots<S> >= 3)>
 __device__ __forceinline__ Steps<S, F, Shared> take(Arena& ar) {
   if constexpr (!Shared) {
     return {};
@@ -254,7 +312,7 @@ __device__ __forceinline__ Steps<S, F, Shared> take(Arena& ar) {
     return x;
   } else {
     const Steps<S, F, true> x{ar.p};
-    ar.p += 32 * F * S;
+    ar.p += 32 * F * kSlots<S>;
     return x;
   }
 }
@@ -264,9 +322,13 @@ __device__ __forceinline__ Vec<S> vec(Arena& ar) {
   return take<S, 3, S == kDyn>(ar);
 }
 
+// A scenario's sum: a butterfly over the warp, or over the segment on the
+// packed arm (xor 4, 2, 1 never leaves it).
+template <int S>
 __device__ __forceinline__ float wsum(float v) {
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
+  for (int m = kPacked<S> ? kSegLanes / 2 : 16; m > 0; m >>= 1)
+    v += __shfl_xor_sync(kFull, v, m);
   return v;
 }
 
@@ -275,7 +337,7 @@ __device__ __forceinline__ float vsum(const Vec<S>& x) {
   float acc = 0.f;
 B1_UNROLL_SLOTS
   for (int s = 0; s < slots<S>(x); ++s) acc += x[s][0] + x[s][1] + x[s][2];
-  return wsum(acc);
+  return wsum<S>(acc);
 }
 
 template <int S>
@@ -285,7 +347,7 @@ B1_UNROLL_SLOTS
   for (int s = 0; s < slots<S>(x); ++s)
 #pragma unroll
     for (int a = 0; a < 3; ++a) acc = fmaf(x[s][a], y[s][a], acc);
-  return wsum(acc);
+  return wsum<S>(acc);
 }
 
 template <int S>
@@ -296,11 +358,85 @@ B1_UNROLL_SLOTS
     for (int a = 0; a < 3; ++a) y[s][a] = x[s][a];
 }
 
+// The packed arm's x_k <- sum_{j<k} x_j, per axis, on a segment whose lane
+// j holds steps n j .. n j + n - 1: a serial sum over the lane's own steps,
+// a Kogge-Stone scan of the lanes' totals over the segment (3
+// __shfl_up_sync levels of width kSegLanes), then the carry from the lane
+// below (one more) added to each step's local sum: 4 shuffles an axis.
+template <int S>
+__device__ __forceinline__ void seg_prefix_excl(Vec<S>& x, int lane) {
+  constexpr int n = kSlots<S>;
+  float tot[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float run = 0.f;
+#pragma unroll
+    for (int s = 0; s < n; ++s) {
+      const float v = x[s][a];
+      x[s][a] = run;
+      run += v;
+    }
+    tot[a] = run;
+  }
+#pragma unroll
+  for (int off = 1; off < kSegLanes; off <<= 1)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = __shfl_up_sync(kFull, tot[a], off, kSegLanes);
+      if (lane >= off) tot[a] += t;
+    }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float up = __shfl_up_sync(kFull, tot[a], 1, kSegLanes);
+    const float carry = lane == 0 ? 0.f : up;
+#pragma unroll
+    for (int s = 0; s < n; ++s) x[s][a] += carry;
+  }
+}
+
+// The packed arm's x_k <- sum_{j>k} x_j: the mirror of seg_prefix_excl,
+// with __shfl_down_sync.
+template <int S>
+__device__ __forceinline__ void seg_suffix_excl(Vec<S>& x, int lane) {
+  constexpr int n = kSlots<S>;
+  float tot[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float run = 0.f;
+#pragma unroll
+    for (int s = n - 1; s >= 0; --s) {
+      const float v = x[s][a];
+      x[s][a] = run;
+      run += v;
+    }
+    tot[a] = run;
+  }
+#pragma unroll
+  for (int off = 1; off < kSegLanes; off <<= 1)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = __shfl_down_sync(kFull, tot[a], off, kSegLanes);
+      if (lane + off < kSegLanes) tot[a] += t;
+    }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float dn = __shfl_down_sync(kFull, tot[a], 1, kSegLanes);
+    const float carry = lane == kSegLanes - 1 ? 0.f : dn;
+#pragma unroll
+    for (int s = 0; s < n; ++s) x[s][a] += carry;
+  }
+}
+
 // x_k <- sum_{j<k} x_j over the horizon (k = lane + 32 s), per axis: a
 // shift by one step, then a Kogge-Stone scan of 5 __shfl_up_sync levels;
-// from two steps a lane on, each slot adds the one before's total.
+// from two steps a lane on, each slot adds the one before's total. The
+// packed arm scans its segment (seg_prefix_excl).
 template <int S>
 __device__ __forceinline__ void prefix_excl(Vec<S>& x, int lane, Arena ar) {
+  if constexpr (kPacked<S>) {
+    seg_prefix_excl<S>(x, lane);
+    return;
+  }
   const int n = slots<S>(x);
   Vec<S> y = vec<S>(ar);
 B1_UNROLL_SLOTS
@@ -331,6 +467,10 @@ B1_UNROLL_SLOTS
 // prefix_excl, with __shfl_down_sync).
 template <int S>
 __device__ __forceinline__ void suffix_excl(Vec<S>& x, int lane, Arena ar) {
+  if constexpr (kPacked<S>) {
+    seg_suffix_excl<S>(x, lane);
+    return;
+  }
   const int n = slots<S>(x);
   Vec<S> y = vec<S>(ar);
 B1_UNROLL_SLOTS
@@ -430,13 +570,13 @@ B1_UNROLL_SLOTS
 // u/m + g on axis a. inv_m_lo is what float32 rounding took off 1/m: without
 // it every acceleration is off by the same ~3e-8 relative, and the positions
 // drift by that times t^2 / 2 (5 um at 6.4 s, 24 um at 12.8 s), which the
-// hinge weights turn into ~2e-5 of the cost at N > 64. At one and two steps
-// a lane (t < 6.4 s) the drift stays inside every tolerance, and those
-// instantiations keep their arithmetic bit for bit.
+// hinge weights turn into ~2e-5 of the cost at N > 64. At N <= 64 (t < 6.4
+// s: one and two steps a lane, and the packed arm) the drift stays inside
+// every tolerance, and those arms keep their arithmetic bit for bit.
 template <int S>
 __device__ __forceinline__ float accel(const MpcParams& P, float u, int a) {
   const float g = a == 2 ? P.g_z : 0.f;
-  if constexpr (S >= 3) {
+  if constexpr (S >= 3 && !kPacked<S>) {
     return fmaf(u, P.inv_m_lo, fmaf(u, P.inv_m, g));
   } else {
     return fmaf(u, P.inv_m, g);
@@ -454,7 +594,7 @@ __device__ __forceinline__ void rollout(const MpcParams& P, int lane, const Step
   Vec<S> acc = vec<S>(ar);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const bool valid = lane + 32 * s < P.N;
+    const bool valid = step_at<S>(lane, s) < P.N;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       acc[s][a] = valid ? accel<S>(P, u[s][a], a) : 0.f;
@@ -462,7 +602,7 @@ B1_UNROLL_SLOTS
   forward_maps<S>(acc, P.dt * P.dt, P.dt, lane, pos, vel, ar);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const bool valid = lane + 32 * s < P.N;
+    const bool valid = step_at<S>(lane, s) < P.N;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       pos[s][a] = valid ? pos[s][a] + c0[s][a] : 0.f;
@@ -490,7 +630,7 @@ __device__ __forceinline__ float cost(const MpcParams& P, Spheres sp, int lane, 
   float D = 0.f;
 B1_UNROLL_SLOTS
   for (int s = 0; s < slots<S>(u); ++s) {
-    const int k = lane + 32 * s;
+    const int k = step_at<S>(lane, s);
     if (k >= P.N) continue;
     const float wp = step_weight(P, k);
 #pragma unroll
@@ -533,7 +673,7 @@ B1_UNROLL_SLOTS
       D += P.w_tn * nv * nv;
     }
   }
-  return wsum(D);
+  return wsum<S>(D);
 }
 
 // Per-round curvature data consumed by the CG matvec (21 floats a step).
@@ -577,11 +717,12 @@ constexpr int kDynFields =
 static_assert(kDynFields == 73, "the header comment and PERF.md state 73 floats a step");
 
 // Floats of a warp's arena at S steps a lane (n = ceil(N / 32)): none at
-// one and two; at three and four a round's Curv, the goal and c0; from five
-// on kDynFields a step.
+// one and two; at three and four a round's Curv, the goal and c0 (on the
+// packed arm too); from five on kDynFields a step.
 template <int S>
 __host__ __device__ constexpr int arena_floats(int n) {
-  return S == kDyn ? 32 * n * kDynFields : (S >= 3 ? 32 * S * (kCurvFields + 3 + 3) : 0);
+  return S == kDyn ? 32 * n * kDynFields
+                   : (kSlots<S> >= 3 ? 32 * kSlots<S> * (kCurvFields + 3 + 3) : 0);
 }
 
 // out = free * (H + S_p^T h S_p + S_v^T hv S_v + tilt + thrust norm) (free * p)
@@ -598,7 +739,7 @@ B1_UNROLL_SLOTS
   forward_maps<S>(dv, cp, cv, lane, zp, zv, ar);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const int k = lane + 32 * s;
+    const int k = step_at<S>(lane, s);
     const float w2p = 2.f * step_weight(P, k);
     const float w2v = k < P.N ? 2.f * P.w_v : 0.f;
     const auto h = c.h[s];
@@ -658,7 +799,7 @@ __device__ __forceinline__ void physical_gradient(const MpcParams& P, Spheres sp
   const int N = P.N, n = slots<S>(pos);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const int k = lane + 32 * s;
+    const int k = step_at<S>(lane, s);
     const bool valid = k < N;
     const float wp = step_weight(P, k);
     // the step's curvature blocks, summed here and stored once
@@ -740,7 +881,7 @@ __device__ __forceinline__ void thrust_gradient(const MpcParams& P, int lane, bo
   pullback<S>(gpos, gvel, cp, cv, lane, g, ar);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const int k = lane + 32 * s;
+    const int k = step_at<S>(lane, s);
     if constexpr (Curvature) {
 #pragma unroll
       for (int a = 0; a < 4; ++a) c->tl[s][a] = 0.f;
@@ -842,7 +983,7 @@ __device__ __forceinline__ void newton_round(const MpcParams& P, Spheres sp, int
   // active set: at a bound with the gradient pushing outward
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const bool valid = lane + 32 * s < N;
+    const bool valid = step_at<S>(lane, s) < N;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const bool at_lo = (u[s][a] <= P.lb[a] + 1e-6f) && (g[s][a] > 0.f);
@@ -889,6 +1030,8 @@ B1_UNROLL_SLOTS
       d[s][a] = 0.f;
     }
   float rz = vdot<S>(r, z0);
+  // packed arm: this segment's scenario has left the loop
+  bool frozen = false;
   for (int it = 0; it < cg_iters; ++it) {
     Arena step = ar;
     Vec<S> ap = vec<S>(step);
@@ -897,25 +1040,36 @@ B1_UNROLL_SLOTS
     const float pp = vdot<S>(p, p);
     // once a direction shows (near-)negative curvature the scenario's
     // step is frozen for the rest of the round: later iterations would
-    // change nothing, so the warp leaves the loop
-    if (!(pap > 1e-8f * pp)) break;
+    // change nothing, so the warp leaves the loop. On the packed arm the
+    // segment's d, r, p and rz stay as they are, and the warp leaves once
+    // all four of its scenarios are frozen.
+    if constexpr (kPacked<S>) {
+      frozen = frozen || !(pap > 1e-8f * pp);
+      if (__ballot_sync(kFull, frozen) == kFull) break;
+    } else {
+      if (!(pap > 1e-8f * pp)) break;
+    }
     const float alpha = rz / fmaxf(pap, 1e-12f);
     Vec<S> z = vec<S>(step);
 B1_UNROLL_SLOTS
     for (int s = 0; s < n; ++s)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        d[s][a] += alpha * p[s][a];
-        r[s][a] -= alpha * ap[s][a];
+        if (!frozen) {
+          d[s][a] += alpha * p[s][a];
+          r[s][a] -= alpha * ap[s][a];
+        }
         z[s][a] = minv[s][a] * r[s][a];
       }
     const float rz_new = vdot<S>(r, z);
     const float beta = rz_new / fmaxf(rz, 1e-12f);
+    if (!frozen) {
 B1_UNROLL_SLOTS
-    for (int s = 0; s < n; ++s)
+      for (int s = 0; s < n; ++s)
 #pragma unroll
-      for (int a = 0; a < 3; ++a) p[s][a] = z[s][a] + beta * p[s][a];
-    rz = rz_new;
+        for (int a = 0; a < 3; ++a) p[s][a] = z[s][a] + beta * p[s][a];
+      rz = rz_new;
+    }
   }
   if (full) {
     // negative curvature on the first CG step leaves d = 0: fall back to
@@ -944,7 +1098,7 @@ B1_UNROLL_SLOTS
     Vec<S> cand = vec<S>(cand_ar), pc = vec<S>(cand_ar), vc = vec<S>(cand_ar);
 B1_UNROLL_SLOTS
     for (int s = 0; s < n; ++s) {
-      const bool valid = lane + 32 * s < N;
+      const bool valid = step_at<S>(lane, s) < N;
 #pragma unroll
       for (int a = 0; a < 3; ++a)
         cand[s][a] =
@@ -972,24 +1126,35 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
                      float* __restrict__ pos_out, float* __restrict__ vel_out,
                      float* __restrict__ imp_out, float* __restrict__ cost_out,
                      float* __restrict__ gnorm_out, float* __restrict__ scratch) {
-  // [kWarps<S>][K][4]: each warp's live spheres; then, from three steps a
-  // lane on, each warp's arena of arena_floats<S>(n), which at S = kDyn
-  // lies in `scratch` instead when the launch passes one
+  // [kWarps<S> x kPerWarp<S>][K][4]: each scenario's live spheres; then,
+  // from three steps a lane on, each warp's arena of arena_floats<S>(n),
+  // which at S = kDyn lies in `scratch` instead when the launch passes one
   extern __shared__ float smem[];
   const int N = P.N, K = P.K;
-  const int n = S == kDyn ? (N + 31) / 32 : S;  // slots a lane
-  const int LD = 32 * n;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps<S> + warp;
-  if (b >= P.B) return;  // each warp touches only its own shared memory
+  const int n = S == kDyn ? (N + 31) / 32 : kSlots<S>;  // slots a lane
+  // the constant block's step vectors are 32 ceil(N / 32) long
+  const int LD = kPacked<S> ? 32 : 32 * n;
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  // the lane's place among its scenario's lanes: in its segment on the
+  // packed arm
+  const int lane = kPacked<S> ? wl % kSegLanes : wl;
+  const int w = blockIdx.x * kWarps<S> + warp;
+  if (w * kPerWarp<S> >= P.B) return;  // each warp touches only its own shared memory
+  // On the packed arm a segment past the batch runs the last scenario's
+  // inputs and writes nothing: it may not return, since the warp's other
+  // segments meet it at every shuffle.
+  const int seg = kPacked<S> ? wl / kSegLanes : 0;
+  const bool writes = !kPacked<S> || w * kPerWarp<S> + seg < P.B;
+  const int b = writes ? w * kPerWarp<S> + seg : P.B - 1;
   // Keep the live spheres, in order, at the front: a masked sphere adds
   // exactly 0 to every sum, so the loops skip it without a branch.
-  float* live = smem + warp * 4 * K;
+  float* live = smem + (warp * kPerWarp<S> + seg) * 4 * K;
   int n_live = 0;
-  for (int base = 0; base < K; base += 32) {
+  for (int base = 0; base < K; base += 32 / kPerWarp<S>) {
     const int o = base + lane;
     const bool on = o < K && mask_in[(size_t)b * K + o] != 0.f;
-    const unsigned m = __ballot_sync(kFull, on);
+    unsigned m = __ballot_sync(kFull, on);
+    if constexpr (kPacked<S>) m = (m >> (kSegLanes * seg)) & ((1u << kSegLanes) - 1u);
     if (on) {
       float* dst = live + 4 * (n_live + __popc(m & ((1u << lane) - 1u)));
 #pragma unroll
@@ -1000,11 +1165,11 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
   __syncwarp();
   const Spheres sp{live, P.use_obstacles ? n_live : 0};
 
-  float* arena = smem + kWarps<S> * 4 * K + warp * arena_floats<S>(n);
+  float* arena = smem + kWarps<S> * kPerWarp<S> * 4 * K + warp * arena_floats<S>(n);
   if constexpr (S == kDyn) {
     if (scratch != nullptr) arena = scratch + (size_t)b * arena_floats<S>(n);
   }
-  Arena ar{arena + lane, n, arena_floats<S>(n)};
+  Arena ar{arena + wl, n, arena_floats<S>(n)};
   // constants: t (k dt) and diag(H), each LD long, zero past N; then the
   // n_alpha alphas
   Steps<S, 3> goal = take<S, 3>(ar), c0 = take<S, 3>(ar);
@@ -1015,7 +1180,7 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
   const float vel0[3] = {v0[b * 3], v0[b * 3 + 1], v0[b * 3 + 2]};
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const int k = lane + 32 * s;
+    const int k = step_at<S>(lane, s);
     const bool valid = k < N;
     dq[s][0] = consts[LD + k];
 #pragma unroll
@@ -1043,8 +1208,8 @@ B1_UNROLL_SLOTS
   const float J = cost<S>(P, sp, lane, vmax, u, pos, vel, goal);
 B1_UNROLL_SLOTS
   for (int s = 0; s < n; ++s) {
-    const int k = lane + 32 * s;
-    if (k >= N) continue;
+    const int k = step_at<S>(lane, s);
+    if (k >= N || !writes) continue;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const size_t at = ((size_t)b * N + k) * 3 + a;
@@ -1053,7 +1218,7 @@ B1_UNROLL_SLOTS
       vel_out[at] = vel[s][a];
     }
   }
-  if (lane == 0) {
+  if (lane == 0 && writes) {
     imp_out[b] = min_imp;
     cost_out[b] = J;
   }
@@ -1067,15 +1232,15 @@ B1_UNROLL_SLOTS
     float sq = 0.f;
 B1_UNROLL_SLOTS
     for (int s = 0; s < n; ++s) {
-      if (lane + 32 * s >= N) continue;
+      if (step_at<S>(lane, s) >= N) continue;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float pg = fminf(fmaxf(u[s][a] - g[s][a], P.lb[a]), P.ub[a]) - u[s][a];
         sq = fmaf(pg, pg, sq);
       }
     }
-    const float norm = sqrtf(wsum(sq));
-    if (lane == 0) gnorm_out[b] = norm;
+    const float norm = sqrtf(wsum<S>(sq));
+    if (lane == 0 && writes) gnorm_out[b] = norm;
   }
 }
 
@@ -1095,37 +1260,63 @@ cudaError_t arena_in_scratch(const MpcParams& P, bool& spills) {
   return cudaSuccess;
 }
 
+// Dynamic shared memory of a block at arm S: its scenarios' spheres and,
+// unless the arena lies in global scratch, its warps' arenas.
+template <int S>
+size_t shared_bytes(const MpcParams& P, bool in_scratch) {
+  const int n = S == kDyn ? (P.N + 31) / 32 : kSlots<S>;
+  return sizeof(float) * ((size_t)kWarps<S> * kPerWarp<S> * 4 * P.K +
+                          (in_scratch ? 0 : (size_t)kWarps<S> * arena_floats<S>(n)));
+}
+
 template <int S>
 cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, const float* p0,
                    const float* v0, const float* goal, const float* obs, const float* mask,
                    const float* vcap, float* u_out, float* pos_out, float* vel_out,
                    float* imp_out, float* cost_out, float* gnorm_out, float* scratch,
                    cudaStream_t stream) {
-  const int n = S == kDyn ? (P.N + 31) / 32 : S;
-  const size_t smem =
-      sizeof(float) * ((size_t)kWarps<S> * 4 * P.K +
-                       (scratch != nullptr ? 0 : (size_t)kWarps<S> * arena_floats<S>(n)));
+  const size_t smem = shared_bytes<S>(P, scratch != nullptr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         mpc_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((P.B + kWarps<S> - 1) / kWarps<S>), block(kWarps<S> * 32);
+  constexpr int per_block = kWarps<S> * kPerWarp<S>;  // scenarios
+  const dim3 grid((P.B + per_block - 1) / per_block), block(kWarps<S> * 32);
   mpc_solve_kernel<S><<<grid, block, smem, stream>>>(P, consts, u0, p0, v0, goal, obs, mask,
                                                      vcap, u_out, pos_out, vel_out, imp_out,
                                                      cost_out, gnorm_out, scratch);
   return cudaGetLastError();
 }
 
+// Warps an SM keeps resident at arm S for `P` (the runtime's occupancy
+// calculator), into `warps`.
+template <int S>
+cudaError_t resident(const MpcParams& P, bool in_scratch, int& warps) {
+  int blocks = 0;
+  const size_t smem = shared_bytes<S>(P, in_scratch);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(mpc_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mpc_solve_kernel<S>,
+                                                      kWarps<S> * 32, smem);
+  warps = blocks * kWarps<S>;
+  return e;
+}
+
 }  // namespace
 
-// launch<kDyn>, five or more steps a lane, defined in mpc_solve_steps.cu.
+// launch<kDyn> and resident<kDyn>, five or more steps a lane, defined in
+// mpc_solve_steps.cu.
 cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, const float* u0,
                                       const float* p0, const float* v0, const float* goal,
                                       const float* obs, const float* mask, const float* vcap,
                                       float* u_out, float* pos_out, float* vel_out,
                                       float* imp_out, float* cost_out, float* gnorm_out,
                                       float* scratch, cudaStream_t stream);
+cudaError_t mpc_resident_run_time_steps(const MpcParams& P, bool in_scratch, int& warps);
 
 #ifdef B1_RUN_TIME_STEPS
 
@@ -1139,7 +1330,54 @@ cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, c
                       imp_out, cost_out, gnorm_out, scratch, stream);
 }
 
+cudaError_t mpc_resident_run_time_steps(const MpcParams& P, bool in_scratch, int& warps) {
+  return resident<kDyn>(P, in_scratch, warps);
+}
+
 #else
+
+namespace {
+
+// An arm of the kernel: its launch, its occupancy, its scenarios a warp.
+struct Arm {
+  decltype(&launch<1>) launch;
+  decltype(&resident<1>) resident;
+  int per_warp;
+};
+
+// The arm a launch takes, into `arm`. Up to N = 32 the packed arm, by
+// ceil(N / 8) steps a lane, unless the batch fits one wave of the
+// one-scenario-a-warp arm (kWarps<1> x kMinBlocks<1> = 16 warps on each of
+// the card's SMs, read here): there every scenario is in flight at once
+// either way, and one scenario's shorter chain decides (B=1: 0.22 ms
+// against 0.41 packed on an H100). Past N = 32 by ceil(N / 32) steps a
+// lane, all from five on in one.
+cudaError_t arm_of(const MpcParams& P, const Arm*& arm) {
+  static constexpr Arm arms[] = {
+      {launch<1>, resident<1>, 1},
+      {launch<kPack + 1>, resident<kPack + 1>, kPerWarp<kPack + 1>},
+      {launch<kPack + 2>, resident<kPack + 2>, kPerWarp<kPack + 2>},
+      {launch<kPack + 3>, resident<kPack + 3>, kPerWarp<kPack + 3>},
+      {launch<kPack + 4>, resident<kPack + 4>, kPerWarp<kPack + 4>},
+      {launch<2>, resident<2>, 1},
+      {launch<3>, resident<3>, 1},
+      {launch<4>, resident<4>, 1},
+      {mpc_launch_run_time_steps, mpc_resident_run_time_steps, 1}};
+  const int steps = (P.N + 31) / 32;
+  if (steps > 1) {
+    arm = &arms[3 + (steps < kDyn ? steps : kDyn)];
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const bool one_wave = P.B <= sms * kWarps<1> * kMinBlocks<1>;
+  arm = &arms[one_wave ? 0 : (P.N + kSegLanes - 1) / kSegLanes];
+  return cudaSuccess;
+}
+
+}  // namespace
 
 extern "C" int mpc_params_size() { return (int)sizeof(MpcParams); }
 
@@ -1178,14 +1416,37 @@ extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, co
   const cudaError_t e = arena_in_scratch(P, spills);
   if (e != cudaSuccess) return (int)e;
   if (spills != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+  const Arm* arm = nullptr;
+  const cudaError_t ea = arm_of(P, arm);
+  if (ea != cudaSuccess) return (int)ea;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // by the horizon steps a lane, ceil(N / 32), all from five on in one
-  constexpr decltype(&launch<1>) by_steps[kDyn] = {launch<1>, launch<2>, launch<3>, launch<4>,
-                                                   mpc_launch_run_time_steps};
-  const int steps = (P.N + 31) / 32;
-  return (int)by_steps[(steps < kDyn ? steps : kDyn) - 1](P, consts, u0, p0, v0, goal, obs, mask,
-                                                           vcap, u_out, pos_out, vel_out, imp_out,
-                                                           cost_out, gnorm_out, scratch, st);
+  return (int)arm->launch(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out,
+                          vel_out, imp_out, cost_out, gnorm_out, scratch, st);
+}
+
+// Scenarios a warp of the arm that mpc_solve_launch takes for `params`: 4
+// on the packed arm (N <= 32, past one wave of one scenario a warp), else
+// 1; minus the CUDA error code if the card cannot be queried.
+extern "C" int mpc_scenarios_per_warp(const MpcParams* params) {
+  if (params->N < 1) return -(int)cudaErrorInvalidValue;
+  const Arm* arm = nullptr;
+  const cudaError_t e = arm_of(*params, arm);
+  return e == cudaSuccess ? arm->per_warp : -(int)e;
+}
+
+// Warps an SM keeps resident at the arm mpc_solve_launch takes for
+// `params` (the runtime's occupancy calculator); minus the CUDA error code
+// where it cannot say.
+extern "C" int mpc_resident_warps(const MpcParams* params) {
+  const MpcParams P = *params;
+  if (P.N < 1 || P.K < 0) return -(int)cudaErrorInvalidValue;
+  bool spills = false;
+  int warps = 0;
+  const Arm* arm = nullptr;
+  cudaError_t e = arena_in_scratch(P, spills);
+  if (e == cudaSuccess) e = arm_of(P, arm);
+  if (e == cudaSuccess) e = arm->resident(P, spills, warps);
+  return e == cudaSuccess ? warps : -(int)e;
 }
 
 #endif  // B1_RUN_TIME_STEPS

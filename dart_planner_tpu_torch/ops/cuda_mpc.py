@@ -87,6 +87,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpc_error_string.argtypes = [_c_int]
     lib.mpc_scratch_floats.restype = ctypes.c_longlong
     lib.mpc_scratch_floats.argtypes = [ctypes.POINTER(_Params)]
+    for name in ("mpc_scenarios_per_warp", "mpc_resident_warps"):
+        getattr(lib, name).restype = _c_int
+        getattr(lib, name).argtypes = [ctypes.POINTER(_Params)]
     lib.mpc_solve_launch.restype = _c_int
     lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 16
     return lib
@@ -224,9 +227,11 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     a CUDA stream adds one to ``LAUNCHES``; ``stream=None`` (a library built
     for the CPU) does not. Every launch adds one, on the host, to the global
     metrics counter ``b1_launches`` under the labels ``pass`` (``solve_pass``),
-    ``steps`` (horizon steps a lane, B1's arm: 1-4 are compiled arms, from 5
-    on one arm reads the count at run time) and ``arena`` (``"global"`` where the
-    warps' arena lies in the global scratch, else ``"shared"``). Timed whole
+    ``steps`` (``ceil(N / 32)``: 2-4 are compiled arms, from 5 on one arm
+    reads the count at run time), ``arena`` (``"global"`` where the warps'
+    arena lies in the global scratch, else ``"shared"``) and ``per_warp``
+    (scenarios a warp, ``mpc_scenarios_per_warp``: 4 on the packed arm that
+    takes every N <= 32, else 1). Timed whole
     as the span ``b1.wrapper``, whose milliseconds also go into the history
     ``b1.wrapper.<solve_pass>``."""
     global LAUNCHES
@@ -289,7 +294,8 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
                 LAUNCHES += 1
             get_metrics().increment("b1_launches", labels={
                 "pass": solve_pass, "steps": lane_stride(N) // 32,
-                "arena": "global" if n_scratch else "shared"})
+                "arena": "global" if n_scratch else "shared",
+                "per_warp": lib.mpc_scenarios_per_warp(ctypes.byref(params))})
 
         def rows(x):
             return x.reshape(batch_shape + (N, 3))

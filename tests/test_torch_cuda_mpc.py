@@ -22,14 +22,17 @@ is aggregate (mean cost within 5%, descent from the cold start, at least
 half the scenarios within 0.05 in thrust), as in tests/test_pallas_mpc.py.
 """
 
+import ctypes
 import math
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from dart_planner_tpu_torch.ops import cuda_mpc, dynamics
+from dart_planner_tpu_torch.ops import _build, cuda_mpc, dynamics
 from dart_planner_tpu_torch.planning import se3_mpc as T
+from _emulated_b1 import check_segment_isolation
 
 CFG = T.SE3MPCConfig(
     prediction_horizon=8, max_iterations=4, cg_iterations=10, tail_iterations=0
@@ -288,8 +291,29 @@ def _kernel_vs_plain(config, prob, use_obstacles=True):
     return u0, [x.cpu() for x in k[:5]], [x.cpu() for x in p[:5]]
 
 
+def _packed_copies(config, prob, u0, p, copies=17):
+    """The packed arm on the first 255 scenarios of a batch, repeated
+    ``copies`` times in one launch (4335 scenarios: past one wave of one
+    scenario a warp on a card of up to 270 SMs; 255 is odd, so each scenario
+    sits in every segment of a warp, and the last warp has a segment past
+    the batch). Every copy's outputs are the same bit for bit; returns those
+    scenarios' problem, cold start, the packed outputs once and the plain
+    ones ``p``."""
+    idx = torch.arange(255).repeat(copies).to(u0.device)
+    tiled = T.costs.Problem(*[None if x is None else x[idx] for x in prob])
+    params = cuda_mpc._params(config, len(idx), prob.obstacles.shape[-2], True)
+    assert cuda_mpc._library().mpc_scenarios_per_warp(ctypes.byref(params)) == 4
+    k = cuda_mpc.solve_thrusts_fused(config, tiled, u0[idx])
+    torch.cuda.synchronize()
+    k = [x.cpu().reshape((copies, 255) + x.shape[1:]) for x in k[:5]]
+    for x in k:
+        assert torch.equal(x, x[:1].expand_as(x))
+    first = T.costs.Problem(*[None if x is None else x[:255] for x in prob])
+    return first, u0[:255], [x[0] for x in k], [x[:255] for x in p]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [8, 12, 20, 40, 65, 80, 100, 128, 160, 256])
+@pytest.mark.parametrize("N", [8, 12, 20, 24, 25, 32, 40, 65, 80, 100, 128, 160, 256])
 @pytest.mark.parametrize("stage", ["gauss_newton", "full_curvature"])
 def test_cuda_kernel_one_round_matches_plain(cuda_device, N, stage):
     """One Newton round at CG-2 with every hinge and the obstacles on: a
@@ -297,7 +321,14 @@ def test_cuda_kernel_one_round_matches_plain(cuda_device, N, stage):
     to 1e-5 relative. Covers one to four horizon steps per lane (N=40: two;
     65: the third slot's first step; 80; 100: four; 128: a full fourth
     slot), five and eight (160, 256: the instantiation that reads the step
-    count at run time) and idle lanes (N=12, 20) in both curvature modes."""
+    count at run time) and idle lanes (N=12, 20) in both curvature modes;
+    at N <= 32 the batch of 256 is within one wave of one scenario a warp,
+    and the packed arm (four scenarios a warp: one to four steps a
+    segment's lane at N = 8, 12, 20-24 and 25-32) is held to the same limits
+    on the same scenarios, copied past that wave (``_packed_copies``). (On
+    fresh draws at 4097 scenarios either arm parts from the plain loop
+    beyond 2e-3 on about one in 4000, where CG's second step meets a 1e4
+    times larger residual: PERF.md section 7.)"""
     config = T.SE3MPCConfig(
         prediction_horizon=N, max_iterations=1, cg_iterations=2,
         tail_iterations=0,
@@ -305,6 +336,15 @@ def test_cuda_kernel_one_round_matches_plain(cuda_device, N, stage):
     )
     prob = _gpu_problem(config, 256, N, cuda_device, n_obs=4)
     u0, k, p = _kernel_vs_plain(config, prob)
+    cases = [(prob, u0, k, p)]
+    if N <= 32:
+        cases.append(_packed_copies(config, prob, u0, p))
+    for prob, u0, k, p in cases:
+        _one_round_limits(config, N, prob, u0, k, p)
+
+
+def _one_round_limits(config, N, prob, u0, k, p):
+    """test_cuda_kernel_one_round_matches_plain's limits on one launch."""
     torch.testing.assert_close(k[0], p[0], rtol=0, atol=2e-3)
     if N <= 64:
         torch.testing.assert_close(k[2], p[2], rtol=0, atol=2e-3)
@@ -349,6 +389,76 @@ def test_cuda_kernel_one_round_matches_plain(cuda_device, N, stage):
         lim = 1e-4 * (e0.abs() + ek.abs()) / (1.0 + ek.abs())
         assert bool(((k[1].double() - exact).abs() <= lim).all()), \
             float(((k[1].double() - exact).abs() / lim).max())
+
+
+@pytest.mark.cuda
+def test_cuda_packed_arm_scenario_is_alone_in_its_segment(cuda_device):
+    """On the card, as in the emulation
+    (``_emulated_b1.check_segment_isolation``): each scenario's outputs are
+    the same bit for bit alone in its warp and beside three others, one of
+    which breaks CG at its first step, in batches of 4097 (past one wave of
+    one scenario a warp on a card of up to 256 SMs)."""
+    def solve(config, prob, u0):
+        out = cuda_mpc.solve_thrusts_fused(config, prob, u0)
+        torch.cuda.synchronize()
+        return out
+
+    check_segment_isolation(solve, cuda_device, 4097)
+
+
+# ptxas' registers and spill bytes (stores, loads) of the one-scenario-a-warp
+# arms, as built since the final norm's pass (PERF.md section 6): one to
+# four steps a lane, and the run-time arm (S = 5)
+OTHER_ARMS = {1: (123, 0, 0), 2: (190, 0, 0), 3: (167, 0, 0), 4: (217, 0, 0),
+              5: (128, 16, 16)}
+
+
+def _ptxas_arms(log):
+    """{S: (registers, spill store bytes, spill load bytes)} of each
+    mpc_solve_kernel<S> in an nvcc -Xptxas -v log."""
+    arms, S = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*mpc_solve_kernelILi(\d+)EE", line)
+        if m:
+            S = int(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and S is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and S is not None:
+            arms[S] = (int(m.group(1)),) + spill
+            S = None
+    return arms
+
+
+@pytest.mark.cuda
+def test_cuda_build_keeps_the_other_arms_and_packs_without_spills(cuda_device, tmp_path):
+    """Kernel B1 built alone with the package's nvcc flags: the
+    one-scenario-a-warp arms keep their registers and spills; the packed arm's four
+    instantiations (S = 9-12: one to four steps a segment's lane) spill
+    nothing, three steps a lane fits 168 registers, and the occupancy
+    calculator keeps 12 warps (48 scenarios) an SM at N=20, K=8 past one
+    wave of one scenario a warp, that arm's 16 up to it, and the S=4 arm's
+    8 at N=100."""
+    sources = [_build.SRC_DIR / "mpc_solve.cu", _build.SRC_DIR / "mpc_solve_steps.cu"]
+    arms = _ptxas_arms(_build.compile_library(sources, tmp_path / "libb1.so"))
+    assert {S: arms.get(S) for S in OTHER_ARMS} == OTHER_ARMS, arms
+    packed = {S: arms[S] for S in (9, 10, 11, 12)}
+    assert all(v[1:] == (0, 0) for v in packed.values()), packed
+    assert packed[11][0] <= 168, packed
+
+    def arm(N, B):
+        params = ctypes.byref(cuda_mpc._params(T.SE3MPCConfig(prediction_horizon=N), B, 8, True))
+        lib = cuda_mpc._library()
+        return lib.mpc_scenarios_per_warp(params), lib.mpc_resident_warps(params)
+
+    # (scenarios a warp, resident warps an SM): the packed arm past one wave
+    # of one scenario a warp (16 warps on each SM), that arm up to it
+    wave = 16 * torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert arm(20, 131072) == arm(20, wave + 1) == (4, 12)
+    assert arm(20, 1) == arm(20, wave) == (1, 16)
+    assert arm(100, 131072) == (1, 8) and arm(33, 131072)[0] == 1
 
 
 def _exact_cost_cpu(config, prob, u):

@@ -17,7 +17,9 @@ CPU, against the JAX package.
 - The kernel's own source, compiled for the CPU by g++ against
   ``csrc/emulation/cuda_runtime.h`` (a warp's lanes take turns on one
   CPU thread; shuffles and ballots meet through a buffer), runs one Newton round
-  at CG-2 at one to eight steps a lane against the plain loop: thrusts
+  at CG-2 at one to eight steps a lane against the plain loop (at N=20 its
+  16 scenarios are within one wave of one scenario a warp; the packed arm's
+  cases are tests/test_torch_b1_packed.py's): thrusts
   within 2e-3 (float32 sums in another order), positions and velocities
   within 1e-4 of the exact (float64) rollout of its own thrusts, its cost
   within 1e-5 relative of their exact cost; and with 12 line-search alphas.
@@ -43,21 +45,13 @@ from dart_planner_tpu.config import frozen_config as J_fc
 from dart_planner_tpu.planning import se3_mpc as J
 from dart_planner_tpu_torch import interop
 from dart_planner_tpu_torch.config import frozen_config as T_fc
-from dart_planner_tpu_torch.ops import cuda_mpc, dynamics
+from dart_planner_tpu_torch.ops import cuda_mpc
 from dart_planner_tpu_torch.planning import se3_mpc as T
+from _emulated_b1 import arrays as _arrays
+from _emulated_b1 import bench_problem as _bench_problem
 from _emulated_b1 import build_emulated_library
+from _emulated_b1 import emulated_round as _emulated_round
 from _torch_one_thread import one_torch_thread  # noqa: F401
-
-
-def _arrays(rng, batch, n_obs):
-    obs = np.concatenate(
-        [rng.normal(0, 4, (batch, n_obs, 3)), rng.uniform(0.3, 1.2, (batch, n_obs, 1))],
-        axis=-1,
-    ).astype(np.float32)
-    p0 = rng.normal(0, 2, (batch, 3)).astype(np.float32) + np.float32([0, 0, 5])
-    v0 = rng.normal(0, 1, (batch, 3)).astype(np.float32)
-    goal = rng.normal(0, 5, (batch, 3)).astype(np.float32) + np.float32([0, 0, 5])
-    return p0, v0, goal, obs
 
 
 # (N, CG iterations a round). At N=160 two rounds of CG-4 branch in float32
@@ -126,35 +120,6 @@ def emulated_library(tmp_path_factory):
     for the CPU as nvcc builds them (``_emulated_b1.build_emulated_library``),
     bound with the kernel's C interface."""
     return build_emulated_library(tmp_path_factory.mktemp("emulation"))
-
-
-def _bench_problem(config, batch, seed):
-    """The chip smoke's bench batch on the CPU (4 live spheres a scenario)."""
-    p0, v0, goal, obs = _arrays(np.random.default_rng(seed), batch, 4)
-    return T.make_problem(p0, v0, goal, obstacles=obs, config=config, device="cpu")
-
-
-def _emulated_round(library, config, batch=16):
-    """One launch of the emulated kernel (through the wrapper's own
-    flattening, ``cuda_mpc.run_library``, with no stream) against the plain
-    loop on the bench batch."""
-    prob = _bench_problem(config, batch, config.prediction_horizon)
-    u0 = T.initialize_thrusts(config, prob)
-    k = cuda_mpc.run_library(lambda: library, config, prob, u0, True, None)
-    p = T.solve_thrusts_plain(config, prob, u0)
-    torch.testing.assert_close(k[0], p[0], rtol=0, atol=2e-3)
-    # the smallest relative improvement, (cost(u0) - cost(u)) / (1 + |cost(u)|),
-    # which decides the converged flags: to 1e-4 of 1 + |improvement|, as far
-    # as costs 1e-4 relative apart move it
-    torch.testing.assert_close(k[1], p[1], rtol=1e-4, atol=1e-4)
-    g = torch.tensor([0.0, 0.0, -config.gravity], dtype=torch.float32).double()
-    pos, vel, _ = dynamics.rollout_linear(k[0].double(), prob.p0.double(), prob.v0.double(),
-                                          config.dt, config.mass, g)
-    torch.testing.assert_close(k[2].double(), pos, rtol=0, atol=1e-4)
-    torch.testing.assert_close(k[3].double(), vel, rtol=0, atol=1e-4)
-    torch.testing.assert_close(k[4].double(), cuda_mpc.exact_cost(config, prob, k[0]),
-                               rtol=1e-5, atol=0)
-    return k, p
 
 
 @pytest.mark.parametrize("N", [20, 65, 100, 128, 129, 160, 256])

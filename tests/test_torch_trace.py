@@ -7,7 +7,7 @@ benchmark's readers of them, on the CPU.
   launch of kernel B1's emulated library.
 - The counter ``b1_launches`` rises once under each pass of a two-phase
   solve through the emulated B1, labelled with the arm (steps a lane, the
-  arena), and ``b1.wrapper.<pass>`` holds each pass's wrapper time.
+  arena, the scenarios a warp), and ``b1.wrapper.<pass>`` holds each pass's wrapper time.
 - Without the profiler no span opens a ``record_function`` range; under a
   CPU ``torch.profiler`` each opens one of its name, nested as the stages
   nest, counts its calls, and counts the warnings with torch's sync message
@@ -172,12 +172,13 @@ def _through_the_emulated_b1(monkeypatch, library):
     monkeypatch.setattr(cuda_mpc, "solve_thrusts_fused", fused)
 
 
-@pytest.mark.parametrize("N,steps", [(20, 1), (100, 4)])
+@pytest.mark.parametrize("N,steps,per_warp", [(20, 1, 1), (100, 4, 1)])
 def test_b1_launches_count_each_pass_of_a_two_phase_solve_at_its_arm(
-        fresh, monkeypatch, emulated_library, N, steps):
+        fresh, monkeypatch, emulated_library, N, steps, per_warp):
     """A two-phase solve launches B1 once in phase 1 and once in the tail:
-    ``b1_launches`` rises by one under each pass, at N's steps a lane and
-    the shared arena, on ``/metrics`` too; the wrapper's milliseconds go
+    ``b1_launches`` rises by one under each pass, at N's steps a lane, the
+    shared arena and the arm's scenarios a warp (one: four scenarios are
+    within one wave of the emulated H100), on ``/metrics`` too; the wrapper's milliseconds go
     into ``b1.wrapper`` and ``b1.wrapper.<pass>`` alike. A warm replan
     (shifted warm start, solve, extraction) counts no sync under the
     profiler."""
@@ -190,14 +191,15 @@ def test_b1_launches_count_each_pass_of_a_two_phase_solve_at_its_arm(
         torch.zeros(4, 3), torch.tensor([5.0, 0.0, 3.0]),
         obstacles=torch.tensor([[2.5, 0.0, 3.0, 0.5]]), config=config, device="cpu")
     res = se3_mpc.solve(config, prob)
-    key = {p: (("arena", "shared"), ("pass", p), ("steps", str(steps)))
+    key = {p: (("arena", "shared"), ("pass", p), ("per_warp", str(per_warp)),
+               ("steps", str(steps)))
            for p in ("phase1", "tail")}
     assert fresh.series("b1_launches") == {key["phase1"]: 1, key["tail"]: 1}
     assert fresh.history("b1.wrapper") == (fresh.history("b1.wrapper.phase1")
                                            + fresh.history("b1.wrapper.tail"))
     text = fresh.prometheus_exposition()
-    assert (f'dart_b1_launches_total{{arena="shared",pass="tail",steps="{steps}"}} 1'
-            in text)
+    assert ('dart_b1_launches_total{arena="shared",pass="tail",'
+            f'per_warp="{per_warp}",steps="{steps}"}} 1' in text)
     with profile(activities=[ProfilerActivity.CPU]):
         warm = se3_mpc.solve(config, prob, se3_mpc.shift_warm_start(config, res.thrusts))
         se3_mpc.extract_trajectory(config, warm, 0.0)
@@ -497,11 +499,13 @@ def test_a_warm_replan_and_episode_make_no_sync_on_the_card(fresh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,steps", [(20, 1), (100, 4)])
-def test_b1_launches_on_the_card_count_each_pass_without_a_sync(fresh, N, steps):
+@pytest.mark.parametrize("N,steps,per_warp", [(20, 1, (4, 1)), (100, 4, (1, 1))])
+def test_b1_launches_on_the_card_count_each_pass_without_a_sync(fresh, N, steps, per_warp):
     """On the card, a warm two-phase solve at B=4096 under sync debug mode
     "error" raises nothing and adds one phase-1 and one tail launch to
-    ``b1_launches``, at N's steps a lane in shared memory."""
+    ``b1_launches``, at N's steps a lane in shared memory and the arm's
+    scenarios a warp (at N=20 phase 1's 4096 are packed four a warp, the
+    tail's 1024 are within one wave of one a warp)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: kernel B1 and the sync debug mode")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -526,7 +530,9 @@ def test_b1_launches_on_the_card_count_each_pass_without_a_sync(fresh, N, steps)
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
     after = fresh.series("b1_launches")
-    rose = {dict(k)["pass"]: (dict(k)["steps"], dict(k)["arena"], n - before.get(k, 0))
+    rose = {dict(k)["pass"]: (dict(k)["steps"], dict(k)["arena"], dict(k)["per_warp"],
+                              n - before.get(k, 0))
             for k, n in after.items() if n > before.get(k, 0)}
-    assert rose == {"phase1": (str(steps), "shared", 1), "tail": (str(steps), "shared", 1)}
+    assert rose == {p: (str(steps), "shared", str(w), 1)
+                    for p, w in zip(("phase1", "tail"), per_warp)}
     assert bool(torch.isfinite(res.cost).all())
