@@ -16,7 +16,9 @@ its plain PyTorch version on the card:
   launch holds, T = max_ticks + 1 and T = 1000 as two launches each, from
   near-hover states (phase 8); figure-8's B=1, T=8, K=0 (phase 12);
 - kernel B1, the fused solve (``ops/cuda_mpc.py``): at K=11 on the
-  closed-loop fleet's first-replan problems (phase 3e), and at the solve
+  closed-loop fleet's first-replan problems, as they are and tiled past one
+  wave, where the packed arm takes them in order of their live spheres
+  (phase 3e), and at the solve
   bench's shapes (4096 scenarios, N=20, K=8 padded with 4 live spheres:
   one Newton round, convex and with every hinge on, in both curvature
   modes, with and without a per-scenario velocity cap; aggregates at the
@@ -77,7 +79,7 @@ and three rounds against the plain loop, scenario by scenario beside the
 plain loop's own spread (18b), the DI planner
 under ``DART_PREDICTION_HORIZON`` = 80 and 100 (18c), and B1's times at N =
 20, 40, 80 and 100, B=4096 and B=1, with its ptxas registers and spills for
-each steps-a-lane instantiation (18d); a fork, then a cold start at a
+each steps-a-lane instantiation, the packed arm's ordered ones too (18d); a fork, then a cold start at a
 horizon not cached before and its solve under a watchdog (18e, ROADMAP
 C.23); B1 past 128 steps, one instantiation for five or more steps a lane
 (18f, C.24): one Newton round and ``solve()`` at N = 129, 160, 256 and 769
@@ -145,6 +147,10 @@ import time
 B_BENCH = 4096
 LIVE_SPHERES = 4
 B_MC = 2048  # the Monte-Carlo fleet of the JAX package's bench
+# phase 3e's first-replan problems tiled past one wave of one scenario a warp
+# (2,112 on an H100): the Monte-Carlo cell's batch, on the packed arm ordered
+# by live spheres
+B_ORDERED = 16_384
 MC_START = (0.0, 0.0, 3.0)
 MC_GOAL = (6.0, 3.0, 4.0)
 # the JAX package's records on this fleet (BENCH_r05.json; docs/quality.md)
@@ -692,10 +698,15 @@ def closed_loop_phase(dev) -> dict:
 def b1_k11_phase(first) -> float:
     """Phase 3e: one CG-2 round of kernel B1 against its plain loop on the
     closed-loop fleet's first-replan problems: K = 8 perceived + 3 sensed
-    spheres, every hinge on, a per-scenario v_cap."""
+    spheres, 0 to 11 live a scenario, every hinge on, a per-scenario v_cap.
+    At B_MC, within one wave of one scenario a warp, and tiled in a shuffled
+    order to B_ORDERED, where the packed arm takes the batch in order of its
+    live spheres: there one ``b1.order`` span a launch, and every copy of a
+    scenario bit for bit the same."""
     import torch
 
     from dart_planner_tpu_torch.common import frames
+    from dart_planner_tpu_torch.common.metrics import get_metrics
     from dart_planner_tpu_torch.ops import costs, cuda_mpc
     from dart_planner_tpu_torch.planning import se3_mpc
 
@@ -705,29 +716,53 @@ def b1_k11_phase(first) -> float:
           f"{'set' if prob.v_cap is not None else 'missing'}; expected K=11 and a cap")
     gvec = frames.gravity_vector(frames.WorldFrame.ENU, config.gravity,
                                  device=prob.p0.device)
-    act = hinge_activity(config, prob, u0, gvec)
+    B = prob.p0.shape[0]
+    rows = torch.randperm(B_ORDERED, generator=torch.Generator().manual_seed(0)) % B
+    rows = rows.to(prob.p0.device)
+    tiled = costs.Problem(*[None if x is None else x[rows] for x in prob])
+    live = tiled.obstacle_mask.sum(-1)
+    check(not torch.equal(live, live.sort(descending=True, stable=True).values),
+          "3e: the tiled first-replan problems are already in order of their live spheres")
     worst = 0.0
-    for stage, n_gn in (("GN", 1), ("full", 0)):
-        cfg_r = config._replace(max_iterations=1, cg_iterations=2,
-                                gn_warmup_iterations=n_gn)
-        kr = cuda_mpc.solve_thrusts_fused(cfg_r, prob, u0)
-        pr = se3_mpc.solve_thrusts_plain(cfg_r, prob, u0)
-        own = costs.condensed_cost(kr[0], prob, config.weights, config.dt,
-                                   config.mass, gvec)
-        torch.cuda.synchronize()
-        check(all(bool(torch.isfinite(x).all()) for x in kr[:5]),
-              f"K=11 {stage}: non-finite kernel output")
-        du, dp, dv = (float((kr[i] - pr[i]).abs().max()) for i in (0, 2, 3))
-        c_own = float(((kr[4] - own).abs() / own.abs()).max())
-        for name, e in (("thrust", du), ("position", dp), ("velocity", dv)):
-            check(e <= 2e-3, f"K=11 {stage}: {name} max |kernel - plain| {e:.3g} > 2e-3")
-        check(c_own <= 1e-5, f"K=11 {stage}: cost vs own thrusts rel {c_own:.3g} > 1e-5")
-        worst = max(worst, du)
-        print(f"[3e B1 K=11 {stage}] B={prob.p0.shape[0]} first-replan problems, "
-              f"CG-2, v_cap range {float(prob.v_cap.min()):.3f}-"
-              f"{float(prob.v_cap.max()):.3f} m/s, active scenarios {act}: max |du| "
-              f"{du:.3g} |dpos| {dp:.3g} |dvel| {dv:.3g} (atol 2e-3); cost rel vs own "
-              f"thrusts {c_own:.3g} (rtol 1e-5)", flush=True)
+    for pr, u, ordered in ((prob, u0, False), (tiled, u0[rows], True)):
+        act = hinge_activity(config, pr, u, gvec)
+        arm = b1_arm(config, pr)
+        check(("ordered" in arm) == ordered, f"3e B={pr.p0.shape[0]}: arm {arm}")
+        for stage, n_gn in (("GN", 1), ("full", 0)):
+            cfg_r = config._replace(max_iterations=1, cg_iterations=2,
+                                    gn_warmup_iterations=n_gn)
+            n_order = len(get_metrics().history("b1.order"))
+            kr = cuda_mpc.solve_thrusts_fused(cfg_r, pr, u)
+            n_order = len(get_metrics().history("b1.order")) - n_order
+            check(n_order == int(ordered), f"K=11 {stage} B={pr.p0.shape[0]}: {n_order} "
+                  f"b1.order spans, not {int(ordered)}")
+            pl = se3_mpc.solve_thrusts_plain(cfg_r, pr, u)
+            own = costs.condensed_cost(kr[0], pr, config.weights, config.dt,
+                                       config.mass, gvec)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(x).all()) for x in kr[:5]),
+                  f"K=11 {stage}: non-finite kernel output")
+            if ordered:  # a scenario's copies, wherever the order puts them
+                for name, x in zip(kr._fields[:5], kr[:5]):
+                    one = x.new_empty((B,) + x.shape[1:])
+                    one[rows] = x
+                    check(torch.equal(x, one[rows]),
+                          f"K=11 {stage}: the copies of a scenario part in {name}")
+            du, dp, dv = (float((kr[i] - pl[i]).abs().max()) for i in (0, 2, 3))
+            c_own = float(((kr[4] - own).abs() / own.abs()).max())
+            for name, e in (("thrust", du), ("position", dp), ("velocity", dv)):
+                check(e <= 2e-3, f"K=11 {stage} B={pr.p0.shape[0]}: {name} max |kernel - "
+                      f"plain| {e:.3g} > 2e-3")
+            check(c_own <= 1e-5, f"K=11 {stage} B={pr.p0.shape[0]}: cost vs own thrusts rel "
+                  f"{c_own:.3g} > 1e-5")
+            worst = max(worst, du)
+            print(f"[3e B1 K=11 {stage}] B={pr.p0.shape[0]} ({arm}"
+                  + (f", copies of the {B} bit for bit equal" if ordered else "")
+                  + f") first-replan problems, CG-2, v_cap range "
+                  f"{float(pr.v_cap.min()):.3f}-{float(pr.v_cap.max()):.3f} m/s, live spheres "
+                  f"{int(live.min())}-{int(live.max())}, active scenarios {act}: max |du| "
+                  f"{du:.3g} |dpos| {dp:.3g} |dvel| {dv:.3g} (atol 2e-3); cost rel vs own "
+                  f"thrusts {c_own:.3g} (rtol 1e-5)", flush=True)
     return worst
 
 
@@ -847,15 +882,19 @@ def b1_alone_ms(config, prob, u0, reps: int = 7) -> float:
 
 
 def b1_arm(config, prob) -> str:
-    """The arm kernel B1 takes for ``prob``: S = ceil(N / 32) steps a lane
-    and the scenarios a warp (the library's ``mpc_scenarios_per_warp``: 4 on
-    the packed arm, N <= 32 past one wave of one scenario a warp)."""
+    """The arm kernel B1 takes for ``prob`` with spheres in use: S = ceil(N /
+    32) steps a lane, the scenarios a warp (the library's
+    ``mpc_scenarios_per_warp``: 4 on the packed arm, N <= 32 past one wave of
+    one scenario a warp), and whether the launch takes the batch in order of
+    its live spheres (``cuda_mpc.order_mask``)."""
     from dart_planner_tpu_torch.ops import cuda_mpc
 
-    B = prob.p0.numel() // 3
-    params = cuda_mpc._params(config, B, prob.obstacles.shape[-2], True)
+    batch = prob.p0.shape[:-1]
+    params = cuda_mpc._params(config, prob.p0.numel() // 3, prob.obstacles.shape[-2], True)
     per_warp = cuda_mpc._library().mpc_scenarios_per_warp(ctypes.byref(params))
-    return f"S={-(-config.prediction_horizon // 32)}, {per_warp} a warp"
+    ordered = cuda_mpc.order_mask(prob, batch, True, per_warp) is not None
+    return (f"S={-(-config.prediction_horizon // 32)}, {per_warp} a warp"
+            + (", ordered by live spheres" if ordered else ""))
 
 
 # the launch function and wrapper module of each kernel, by kernel name
@@ -3798,18 +3837,20 @@ def solve_within_spread(tag: str, cfg, prob) -> tuple:
     return n, rec
 
 
-def ptxas_by_steps(log: str) -> dict:
+def ptxas_by_steps(log: str, ordered: bool = False) -> dict:
     """Kernel B1's ptxas figures for each instantiation, keyed by its
     template argument S (the horizon steps a lane, 5 for five or more; 8 + s
-    for the packed arm at s steps a segment's lane): registers, stack frame
-    and spill bytes, from the ``-Xptxas -v`` lines of the build log."""
+    for the packed arm at s steps a segment's lane), of the instantiations
+    that take no order, or with ``ordered`` of the packed arm's that take an
+    order by live spheres: registers, stack frame and spill bytes, from the
+    ``-Xptxas -v`` lines of the build log."""
     import re
 
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"mpc_solve_kernelILi(\d+)E", m.group(1))
+            k = re.search(rf"mpc_solve_kernelILi(\d+)ELb{int(ordered)}EE", m.group(1))
             cur = int(k.group(1)) if k else None
             continue
         if cur is None:
@@ -3846,7 +3887,8 @@ def long_horizon_phase(dev, card: str) -> dict:
     B=1: with the wrapper (CUDA events), the kernel alone (CUDA events
     around the launch), the plain version, the bound and the share of it
     reached; and B1's ptxas registers and spills for each instantiation (S = 1-4,
-    and 5 for five or more steps a lane)."""
+    5 for five or more steps a lane, and the packed arm's 9-12, with and
+    without an order, which spill nothing)."""
     import torch
 
     from dart_planner_tpu_torch import DroneState
@@ -3930,10 +3972,18 @@ def long_horizon_phase(dev, card: str) -> dict:
                  "(ROADMAP C.21), not gated") + ")", flush=True)
 
     ptxas = ptxas_by_steps(_build.build_log)
+    ptxas_ord = ptxas_by_steps(_build.build_log, ordered=True)
     if _build.build_log:
         check(sorted(ptxas) == [1, 2, 3, 4, 5, 9, 10, 11, 12]
               and all(len(v) == 4 for v in ptxas.values()),
               f"18d: ptxas lines for B1's S = {sorted(ptxas)}, not 1-5 and the packed 9-12")
+        check(sorted(ptxas_ord) == [9, 10, 11, 12]
+              and all(len(v) == 4 for v in ptxas_ord.values()),
+              f"18d: ptxas lines for B1's ordered S = {sorted(ptxas_ord)}, not the packed 9-12")
+        for label, figs in (("", ptxas), ("ordered ", ptxas_ord)):
+            spills = {s: (v["spill_stores"], v["spill_loads"]) for s, v in figs.items() if s > 8}
+            check(all(v == (0, 0) for v in spills.values()),
+                  f"18d: B1's {label}packed arm spills (stores, loads) {spills}")
     times = {}
     fused, plain = cuda_mpc.solve_thrusts_fused, se3_mpc.solve_thrusts_plain
     for N in TIMED_HORIZONS:
@@ -3953,14 +4003,16 @@ def long_horizon_phase(dev, card: str) -> dict:
                   f"{t_p:.4f}, bound {bnd:.3g} ({by}; share of the kernel alone "
                   f"{bnd / d_k:.3g})", flush=True)
     times["ptxas"] = {f"S{s}": v for s, v in sorted(ptxas.items())}
+    times["ptxas"].update({f"S{s}_ordered": v for s, v in sorted(ptxas_ord.items())})
     times["solves"] = {f"N{N}": v for N, v in solves.items()}
     times["rounds"] = {f"N{N}": v for N, v in rounds.items()}
     print(f"[18 long horizons] ({card}) {time.perf_counter() - t_phase:.1f} s (host clock); "
           f"B1 ptxas by steps a lane (S=5: five or more, counted at run time; S=9-12: the "
-          f"packed arm at 1-4 steps a segment's lane): "
-          + ("; ".join(f"S={s}: {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "
+          f"packed arm at 1-4 steps a segment's lane, _ordered: its instantiations that take "
+          f"an order): "
+          + ("; ".join(f"{s}: {v.get('registers')} registers, {v.get('stack_bytes')} B stack, "
                        f"{v.get('spill_stores')} / {v.get('spill_loads')} B spill stores / loads"
-                       for s, v in sorted(ptxas.items())) or "library reused, no build log"),
+                       for s, v in times["ptxas"].items()) or "library reused, no build log"),
           flush=True)
     return {"launches": launches, "max_abs_err": max(err_rounds), "times": times,
             "di_max_abs_err_m": max(di.values())}

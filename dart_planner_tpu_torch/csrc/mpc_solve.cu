@@ -113,7 +113,12 @@
 // holds 48 an SM at N=20 (12 warps), against 16, and its chain is longer
 // (0.41 ms alone: each lane does three steps' work in every per-step pass)
 // but serves four scenarios; B=131,072 takes 11.3 ms against 18.4, ~0.55 ms
-// a wave of 6,336 (an H100; PERF.md).
+// a wave of 6,336 (an H100; PERF.md). A packed warp runs its sphere loops
+// and CG steps until its longest segment is done, and a block's warps
+// retire together, so a batch of mixed live spheres (the closed loop's 0-11
+// of 11 slots) runs in an order by live spheres that the launch passes:
+// B=16,384 takes 1.61-1.83 ms so, against 3.61-3.95 in the batch's own
+// order (an H100; PERF.md).
 //
 // Occupancy: blocks of kWarps<S> warps. At one step a lane, 4 warps and
 // __launch_bounds__ asks for 4 resident blocks (<= 128 registers): 528
@@ -1116,7 +1121,10 @@ B1_UNROLL_SLOTS
   min_imp = fminf(min_imp, imp);
 }
 
-template <int S>
+// Ord: the launch passes an `order`, which only the packed arm takes; its
+// Ord = false instantiations serve every launch without one, so that an
+// order costs those launches nothing.
+template <int S, bool Ord = false>
 __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
     mpc_solve_kernel(const MpcParams P, const float* __restrict__ consts,
                      const float* __restrict__ u0, const float* __restrict__ p0,
@@ -1125,7 +1133,8 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
                      const float* __restrict__ vcap, float* __restrict__ u_out,
                      float* __restrict__ pos_out, float* __restrict__ vel_out,
                      float* __restrict__ imp_out, float* __restrict__ cost_out,
-                     float* __restrict__ gnorm_out, float* __restrict__ scratch) {
+                     float* __restrict__ gnorm_out, float* __restrict__ scratch,
+                     const long long* __restrict__ order) {
   // [kWarps<S> x kPerWarp<S>][K][4]: each scenario's live spheres; then,
   // from three steps a lane on, each warp's arena of arena_floats<S>(n),
   // which at S = kDyn lies in `scratch` instead when the launch passes one
@@ -1145,7 +1154,13 @@ __global__ void __launch_bounds__(kWarps<S> * 32, kMinBlocks<S>)
   // segments meet it at every shuffle.
   const int seg = kPacked<S> ? wl / kSegLanes : 0;
   const bool writes = !kPacked<S> || w * kPerWarp<S> + seg < P.B;
-  const int b = writes ? w * kPerWarp<S> + seg : P.B - 1;
+  const int at = writes ? w * kPerWarp<S> + seg : P.B - 1;
+  // The scenario: where the launch passes an order, the order's at-th,
+  // whose inputs it reads and whose outputs it writes (a scenario's outputs
+  // depend on no other's), so that the scenarios of a warp and of a block
+  // run alike long; else the at-th.
+  static_assert(!Ord || kPacked<S>, "only the packed arm takes an order");
+  const int b = Ord ? (int)order[at] : at;
   // Keep the live spheres, in order, at the front: a masked sphere adds
   // exactly 0 to every sum, so the loops skip it without a branch.
   float* live = smem + (warp * kPerWarp<S> + seg) * 4 * K;
@@ -1269,23 +1284,24 @@ size_t shared_bytes(const MpcParams& P, bool in_scratch) {
                           (in_scratch ? 0 : (size_t)kWarps<S> * arena_floats<S>(n)));
 }
 
-template <int S>
+template <int S, bool Ord = false>
 cudaError_t launch(const MpcParams& P, const float* consts, const float* u0, const float* p0,
                    const float* v0, const float* goal, const float* obs, const float* mask,
                    const float* vcap, float* u_out, float* pos_out, float* vel_out,
                    float* imp_out, float* cost_out, float* gnorm_out, float* scratch,
-                   cudaStream_t stream) {
+                   const long long* order, cudaStream_t stream) {
   const size_t smem = shared_bytes<S>(P, scratch != nullptr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        mpc_solve_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mpc_solve_kernel<S, Ord>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   constexpr int per_block = kWarps<S> * kPerWarp<S>;  // scenarios
   const dim3 grid((P.B + per_block - 1) / per_block), block(kWarps<S> * 32);
-  mpc_solve_kernel<S><<<grid, block, smem, stream>>>(P, consts, u0, p0, v0, goal, obs, mask,
-                                                     vcap, u_out, pos_out, vel_out, imp_out,
-                                                     cost_out, gnorm_out, scratch);
+  mpc_solve_kernel<S, Ord><<<grid, block, smem, stream>>>(P, consts, u0, p0, v0, goal, obs,
+                                                          mask, vcap, u_out, pos_out, vel_out,
+                                                          imp_out, cost_out, gnorm_out, scratch,
+                                                          order);
   return cudaGetLastError();
 }
 
@@ -1315,7 +1331,8 @@ cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, c
                                       const float* obs, const float* mask, const float* vcap,
                                       float* u_out, float* pos_out, float* vel_out,
                                       float* imp_out, float* cost_out, float* gnorm_out,
-                                      float* scratch, cudaStream_t stream);
+                                      float* scratch, const long long* order,
+                                      cudaStream_t stream);
 cudaError_t mpc_resident_run_time_steps(const MpcParams& P, bool in_scratch, int& warps);
 
 #ifdef B1_RUN_TIME_STEPS
@@ -1325,9 +1342,10 @@ cudaError_t mpc_launch_run_time_steps(const MpcParams& P, const float* consts, c
                                       const float* obs, const float* mask, const float* vcap,
                                       float* u_out, float* pos_out, float* vel_out,
                                       float* imp_out, float* cost_out, float* gnorm_out,
-                                      float* scratch, cudaStream_t stream) {
+                                      float* scratch, const long long* order,
+                                      cudaStream_t stream) {
   return launch<kDyn>(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out, vel_out,
-                      imp_out, cost_out, gnorm_out, scratch, stream);
+                      imp_out, cost_out, gnorm_out, scratch, order, stream);
 }
 
 cudaError_t mpc_resident_run_time_steps(const MpcParams& P, bool in_scratch, int& warps) {
@@ -1338,11 +1356,14 @@ cudaError_t mpc_resident_run_time_steps(const MpcParams& P, bool in_scratch, int
 
 namespace {
 
-// An arm of the kernel: its launch, its occupancy, its scenarios a warp.
+// An arm of the kernel: its launch, its occupancy, its scenarios a warp, and
+// on the packed arm its launch in a given order.
+using Launch = decltype(&launch<1>);
 struct Arm {
-  decltype(&launch<1>) launch;
+  Launch launch;
   decltype(&resident<1>) resident;
   int per_warp;
+  Launch ordered = nullptr;
 };
 
 // The arm a launch takes, into `arm`. Up to N = 32 the packed arm, by
@@ -1355,10 +1376,10 @@ struct Arm {
 cudaError_t arm_of(const MpcParams& P, const Arm*& arm) {
   static constexpr Arm arms[] = {
       {launch<1>, resident<1>, 1},
-      {launch<kPack + 1>, resident<kPack + 1>, kPerWarp<kPack + 1>},
-      {launch<kPack + 2>, resident<kPack + 2>, kPerWarp<kPack + 2>},
-      {launch<kPack + 3>, resident<kPack + 3>, kPerWarp<kPack + 3>},
-      {launch<kPack + 4>, resident<kPack + 4>, kPerWarp<kPack + 4>},
+      {launch<kPack + 1>, resident<kPack + 1>, kPerWarp<kPack + 1>, launch<kPack + 1, true>},
+      {launch<kPack + 2>, resident<kPack + 2>, kPerWarp<kPack + 2>, launch<kPack + 2, true>},
+      {launch<kPack + 3>, resident<kPack + 3>, kPerWarp<kPack + 3>, launch<kPack + 3, true>},
+      {launch<kPack + 4>, resident<kPack + 4>, kPerWarp<kPack + 4>, launch<kPack + 4, true>},
       {launch<2>, resident<2>, 1},
       {launch<3>, resident<3>, 1},
       {launch<4>, resident<4>, 1},
@@ -1402,13 +1423,18 @@ extern "C" long long mpc_scratch_floats(const MpcParams* params) {
 // floats, takes each scenario's projected-gradient norm at the final
 // iterate, or is null for none (the kernel then skips that pass). `scratch`
 // holds mpc_scratch_floats(params) floats, or is null when that is 0.
+// `order`, B distinct indices of the batch or null, is the order in which
+// the packed arm takes the scenarios (mpc_scenarios_per_warp > 1; the other
+// arms take none), by instantiations of their own: its i-th scenario runs
+// where the i-th of the batch would, and every input and output stays in
+// the batch's own order.
 // Returns the CUDA error code of the launch, 0 on success.
 extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, const float* u0,
                                 const float* p0, const float* v0, const float* goal,
                                 const float* obs, const float* mask, const float* vcap,
                                 float* u_out, float* pos_out, float* vel_out, float* imp_out,
                                 float* cost_out, float* gnorm_out, float* scratch,
-                                void* stream) {
+                                const long long* order, void* stream) {
   const MpcParams P = *params;
   if (P.B <= 0) return 0;
   if (P.N < 1 || P.K < 0 || P.n_alpha < 0) return (int)cudaErrorInvalidValue;
@@ -1419,9 +1445,11 @@ extern "C" int mpc_solve_launch(const MpcParams* params, const float* consts, co
   const Arm* arm = nullptr;
   const cudaError_t ea = arm_of(P, arm);
   if (ea != cudaSuccess) return (int)ea;
+  const auto go = order != nullptr ? arm->ordered : arm->launch;
+  if (go == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)arm->launch(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out,
-                          vel_out, imp_out, cost_out, gnorm_out, scratch, st);
+  return (int)go(P, consts, u0, p0, v0, goal, obs, mask, vcap, u_out, pos_out, vel_out, imp_out,
+                 cost_out, gnorm_out, scratch, order, st);
 }
 
 // Scenarios a warp of the arm that mpc_solve_launch takes for `params`: 4

@@ -54,10 +54,22 @@ class Problem(NamedTuple):
     v0: Tensor  # (..., 3) current velocity
     goal: Tensor  # (..., 3) goal point, or (..., N, 3) per-step reference
     obstacles: Tensor  # (..., K, 4): cx, cy, cz, r_safe (radius + margin)
-    obstacle_mask: Tensor  # (..., K) bool
+    # (..., K) bool; where every scenario has the same mask, one (K,) row
+    # expanded over the batch (:func:`batch_shared`)
+    obstacle_mask: Tensor
     # optional per-scenario velocity cap (...,) replacing the static
     # ``CostWeights.max_velocity`` in the velocity-envelope hinge
     v_cap: Optional[Tensor] = None
+
+
+def batch_shared(x: Tensor, dims: int) -> bool:
+    """Whether the leading ``dims`` (batch) dims of ``x`` hold one row for
+    the whole batch: each of size 1 or stride 0, as a row expanded over the
+    batch is. Read from shapes and strides, with no tensor operation. Such a
+    field stays shared where a batch is compacted, and kernel B1 takes a
+    batch whose sphere mask is shared in its own order, every key being
+    equal (``cuda_mpc.order_mask``)."""
+    return all(n == 1 or s == 0 for n, s in zip(x.shape[:dims], x.stride()[:dims]))
 
 
 def effective_vmax(prob: Problem, weights: CostWeights):

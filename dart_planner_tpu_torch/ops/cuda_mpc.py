@@ -91,7 +91,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = _c_int
         getattr(lib, name).argtypes = [ctypes.POINTER(_Params)]
     lib.mpc_solve_launch.restype = _c_int
-    lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 16
+    lib.mpc_solve_launch.argtypes = [ctypes.POINTER(_Params)] + [_c_void_p] * 17
     return lib
 
 
@@ -213,6 +213,23 @@ def solve_thrusts_fused(config, prob: costs.Problem, u_init: torch.Tensor,
                            with_grad)
 
 
+def order_mask(prob: costs.Problem, batch_shape: tuple, use_obstacles: bool,
+               per_warp: int) -> Optional[torch.Tensor]:
+    """The batch's sphere mask as (B, K) where a launch on an arm of
+    ``per_warp`` scenarios a warp (the library's ``mpc_scenarios_per_warp``)
+    is to take the batch in order of its live spheres (:func:`run_library`):
+    on the packed arm (more than one: N <= 32 past one wave of one scenario
+    a warp), with spheres in use and a mask that differs by scenario. Else
+    None, with no tensor operation: the other arms take no order, and
+    without spheres or with one mask for the batch
+    (:func:`costs.batch_shared`) every key is equal."""
+    K = prob.obstacles.shape[-2]
+    m = prob.obstacle_mask
+    if not use_obstacles or K == 0 or per_warp <= 1 or costs.batch_shared(m, m.ndim - 1):
+        return None
+    return m.expand(batch_shape + (K,)).reshape(math.prod(batch_shape), K)
+
+
 def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
                 use_obstacles: bool, stream, solve_pass: str = "phase1",
                 with_grad: bool = False) -> ThrustSolve:
@@ -231,9 +248,17 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
     reads the count at run time), ``arena`` (``"global"`` where the warps'
     arena lies in the global scratch, else ``"shared"``) and ``per_warp``
     (scenarios a warp, ``mpc_scenarios_per_warp``: 4 on the packed arm that
-    takes every N <= 32, else 1). Timed whole
-    as the span ``b1.wrapper``, whose milliseconds also go into the history
-    ``b1.wrapper.<solve_pass>``."""
+    takes every N <= 32, else 1). Where :func:`order_mask` gives a mask
+    (the packed arm, spheres in use) the launch passes the kernel an order
+    of the batch by each scenario's live spheres, descending and stable,
+    built on the tensors' device with nothing read back (the span
+    ``b1.order``): a warp runs its sphere loops and CG steps until its
+    longest scenario is done and a block's warps retire together, so alike
+    scenarios side by side waste the least. The kernel reads each
+    scenario's inputs and writes its outputs in the batch's own order, and
+    a scenario's outputs depend on no other's, so they are the same bit for
+    bit in any order. Timed whole as the span ``b1.wrapper``, whose
+    milliseconds also go into the history ``b1.wrapper.<solve_pass>``."""
     global LAUNCHES
     from dart_planner_tpu_torch.common.metrics import get_metrics, span  # common shares ops' layer
 
@@ -270,6 +295,13 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
             lib = library()
             params = _params(config, B, K, use_obstacles)
             consts = device_constant(_constants_on, config, dtype=torch.float32, device=device)
+            per_warp = lib.mpc_scenarios_per_warp(ctypes.byref(params))
+            live = order_mask(prob, batch_shape, use_obstacles, per_warp)
+            order = None
+            if live is not None:
+                with span("b1.order"):
+                    order = torch.argsort(live.sum(-1, dtype=torch.int32), descending=True,
+                                          stable=True)
             n_scratch = lib.mpc_scratch_floats(ctypes.byref(params))
             if n_scratch < 0:
                 err = -n_scratch
@@ -283,7 +315,8 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
                     u_out.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
                     imp_out.data_ptr(), cost_out.data_ptr(),
                     None if gnorm_out is None else gnorm_out.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(), stream,
+                    None if scratch is None else scratch.data_ptr(),
+                    None if order is None else order.data_ptr(), stream,
                 )
             if err != 0:
                 raise RuntimeError(
@@ -295,7 +328,7 @@ def run_library(library, config, prob: costs.Problem, u_init: torch.Tensor,
             get_metrics().increment("b1_launches", labels={
                 "pass": solve_pass, "steps": lane_stride(N) // 32,
                 "arena": "global" if n_scratch else "shared",
-                "per_warp": lib.mpc_scenarios_per_warp(ctypes.byref(params))})
+                "per_warp": per_warp})
 
         def rows(x):
             return x.reshape(batch_shape + (N, 3))

@@ -190,6 +190,9 @@ def make_problem(
 ) -> costs.Problem:
     """Build a fixed-shape Problem on ``device``; pads obstacles to
     ``config.max_obstacles`` and adds the safety margin to their radii.
+    Without ``obstacle_mask`` every scenario has the same mask (its given
+    obstacles live, the padding dead), one (K,) row expanded over the batch
+    (:func:`costs.batch_shared`).
 
     ``device=None`` keeps ``position``'s device when it is a tensor and
     uses the card otherwise."""
@@ -203,7 +206,7 @@ def make_problem(
     batch = p0.shape[:-1]
     if obstacles is None:
         obs = torch.zeros(batch + (K, 4), **kw)
-        mask = torch.zeros(batch + (K,), dtype=torch.bool, device=device)
+        mask = torch.zeros((K,), dtype=torch.bool, device=device).expand(batch + (K,))
     else:
         obs_in = torch.as_tensor(obstacles, **kw).clone()
         n = obs_in.shape[-2]
@@ -215,13 +218,13 @@ def make_problem(
             [obs_in, torch.zeros(obs_in.shape[:-2] + (K - n, 4), **kw)], dim=-2
         )
         if obstacle_mask is None:
-            m = torch.ones(obs_in.shape[:-1], dtype=torch.bool, device=device)
+            mask = (torch.arange(K, device=device) < n).expand(obs.shape[:-1])
         else:
             m = torch.as_tensor(obstacle_mask, dtype=torch.bool, device=device)
-        mask = torch.cat(
-            [m, torch.zeros(m.shape[:-1] + (K - n,), dtype=torch.bool, device=device)],
-            dim=-1,
-        )
+            mask = torch.cat(
+                [m, torch.zeros(m.shape[:-1] + (K - n,), dtype=torch.bool, device=device)],
+                dim=-1,
+            )
     return costs.Problem(p0=p0, v0=v0, goal=g, obstacles=obs, obstacle_mask=mask)
 
 
@@ -607,7 +610,7 @@ def _compact_resolve(
     idx = idx[:C]
 
     def take(x):
-        return None if x is None else x[idx]
+        return None if x is None else x[:C] if costs.batch_shared(x, 1) else x[idx]
 
     prob_t = costs.Problem(*[take(x) for x in prob_f])
     ref = solve_once(

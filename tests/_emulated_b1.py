@@ -45,7 +45,8 @@ def build_emulated_library(out: pathlib.Path) -> ctypes.CDLL:
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel's CPU emulation")
     source = _build.SRC_DIR / "mpc_solve.cu"
-    text, n = re.subn(r"(\w+<S>)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", source.read_text())
+    text, n = re.subn(r"(\w+<S(?:, Ord)?>)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ",
+                      source.read_text())
     assert n == 1, f"{source}: expected one kernel launch, found {n}"
     (out / "mpc_solve.cu").write_text(text + _EMULATION_SMEM)
     shutil.copy(_build.SRC_DIR / "mpc_solve_steps.cu", out)
@@ -168,3 +169,43 @@ def check_segment_isolation(solve, device, batch):
         for row, i in enumerate(order):
             for a, b in zip(packed, alone[i]):
                 assert torch.equal(a[row], b[0]), (order, i)
+
+
+def mixed_spheres(config, batch, seed, device="cpu"):
+    """Problems with K = ``config.max_obstacles`` sphere slots, of which 0
+    to K are live in each scenario, each count about as often, the live
+    slots anywhere among the K (as the closed loop's perceived and sensed
+    slots are)."""
+    K = config.max_obstacles
+    rng = np.random.default_rng(seed)
+    p0, v0, goal, obs = arrays(rng, batch, K)
+    live = rng.integers(0, K + 1, batch)
+    mask = rng.permuted(np.arange(K)[None, :].repeat(batch, 0), axis=1) < live[:, None]
+    return se3_mpc.make_problem(p0, v0, goal, obstacles=obs, obstacle_mask=mask,
+                                config=config, device=device)
+
+
+def check_live_order(solve, config, prob, monkeypatch):
+    """The order by live spheres in which kernel B1's packed arm takes a
+    batch (``cuda_mpc.order_mask``) is invisible to the caller:
+    ``solve(config, prob, u0)`` on a batch whose live counts are not
+    already in that order gives the same outputs bit for bit as the same
+    launch in the order given (``order_mask`` patched to order nothing),
+    and a permutation of the batch gives the permuted outputs, the
+    projected-gradient norm among them (``solve`` asks for it). Returns the
+    ordered launch's outputs."""
+    u0 = se3_mpc.initialize_thrusts(config, prob)
+    live = prob.obstacle_mask.sum(-1)
+    assert not torch.equal(live, live.sort(descending=True, stable=True).values)
+    ordered = solve(config, prob, u0)
+    with monkeypatch.context() as m:
+        m.setattr(cuda_mpc, "order_mask", lambda *args: None)
+        given = solve(config, prob, u0)
+    assert ordered.grad_norm is not None
+    for a, b in zip(ordered, given):
+        assert torch.equal(a, b)
+    perm = torch.randperm(len(u0), generator=torch.Generator().manual_seed(1)).to(u0.device)
+    part = se3_mpc.costs.Problem(*[None if x is None else x[perm] for x in prob])
+    for a, b in zip(solve(config, part, u0[perm]), ordered):
+        assert torch.equal(a, b[perm])
+    return ordered

@@ -138,7 +138,7 @@ def test_null_pointer_writes_nothing(emulated_library):
         err = emulated_library.mpc_solve_launch(
             ctypes.byref(params), consts.data_ptr(), *(x.data_ptr() for x in inputs),
             *(x.data_ptr() for x in outs), None if gnorm is None else gnorm.data_ptr(),
-            None, None)
+            None, None, None)
         assert err == 0
         return outs
 

@@ -32,7 +32,7 @@ import torch
 
 from dart_planner_tpu_torch.ops import _build, cuda_mpc, dynamics
 from dart_planner_tpu_torch.planning import se3_mpc as T
-from _emulated_b1 import check_segment_isolation
+from _emulated_b1 import check_live_order, check_segment_isolation, mixed_spheres
 
 CFG = T.SE3MPCConfig(
     prediction_horizon=8, max_iterations=4, cg_iterations=10, tail_iterations=0
@@ -406,6 +406,27 @@ def test_cuda_packed_arm_scenario_is_alone_in_its_segment(cuda_device):
     check_segment_isolation(solve, cuda_device, 4097)
 
 
+@pytest.mark.cuda
+def test_cuda_live_order_is_invisible_at_the_mc_size(cuda_device, monkeypatch):
+    """The packed arm's order by live spheres on the card at the Monte-Carlo
+    cell's size: 16,384 scenarios at N=20 with 11 sphere slots (the closed
+    loop's 8 perceived and 3 sensed), 0 to 11 live in each, on the packed
+    arm at the full phase-1 budget with the final norm: the outputs are the
+    same bit for bit as the same launch in the order given, and a permuted
+    batch's are the permuted outputs (``_emulated_b1.check_live_order``)."""
+    config = T.SE3MPCConfig(max_obstacles=11, tail_iterations=0)
+    params = cuda_mpc._params(config, 16384, 11, True)
+    assert cuda_mpc._library().mpc_scenarios_per_warp(ctypes.byref(params)) == 4
+    prob = mixed_spheres(config, 16384, 0, cuda_device)
+
+    def solve(config, prob, u0):
+        out = cuda_mpc.solve_thrusts_fused(config, prob, u0, with_grad=True)
+        torch.cuda.synchronize()
+        return out
+
+    check_live_order(solve, config, prob, monkeypatch)
+
+
 # ptxas' registers and spill bytes (stores, loads) of the one-scenario-a-warp
 # arms, as built since the final norm's pass (PERF.md section 6): one to
 # four steps a lane, and the run-time arm (S = 5)
@@ -415,12 +436,13 @@ OTHER_ARMS = {1: (123, 0, 0), 2: (190, 0, 0), 3: (167, 0, 0), 4: (217, 0, 0),
 
 def _ptxas_arms(log):
     """{S: (registers, spill store bytes, spill load bytes)} of each
-    mpc_solve_kernel<S> in an nvcc -Xptxas -v log."""
+    mpc_solve_kernel<S> in an nvcc -Xptxas -v log, and under ("ordered", S)
+    those of the packed arm's instantiations that take an order."""
     arms, S = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*mpc_solve_kernelILi(\d+)EE", line)
+        m = re.search(r"Compiling entry function '\w*mpc_solve_kernelILi(\d+)ELb([01])EE", line)
         if m:
-            S = int(m.group(1))
+            S = int(m.group(1)) if m.group(2) == "0" else ("ordered", int(m.group(1)))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and S is not None:
@@ -437,16 +459,19 @@ def test_cuda_build_keeps_the_other_arms_and_packs_without_spills(cuda_device, t
     """Kernel B1 built alone with the package's nvcc flags: the
     one-scenario-a-warp arms keep their registers and spills; the packed arm's four
     instantiations (S = 9-12: one to four steps a segment's lane) spill
-    nothing, three steps a lane fits 168 registers, and the occupancy
+    nothing, three steps a lane fits 168 registers, and so do their four
+    that take an order by live spheres; the occupancy
     calculator keeps 12 warps (48 scenarios) an SM at N=20, K=8 past one
     wave of one scenario a warp, that arm's 16 up to it, and the S=4 arm's
     8 at N=100."""
     sources = [_build.SRC_DIR / "mpc_solve.cu", _build.SRC_DIR / "mpc_solve_steps.cu"]
     arms = _ptxas_arms(_build.compile_library(sources, tmp_path / "libb1.so"))
     assert {S: arms.get(S) for S in OTHER_ARMS} == OTHER_ARMS, arms
-    packed = {S: arms[S] for S in (9, 10, 11, 12)}
-    assert all(v[1:] == (0, 0) for v in packed.values()), packed
-    assert packed[11][0] <= 168, packed
+    for ordered in (False, True):
+        packed = {S: arms[("ordered", S) if ordered else S] for S in (9, 10, 11, 12)}
+        assert all(v[1:] == (0, 0) for v in packed.values()), packed
+        assert packed[11][0] <= 168, packed
+    assert len(arms) == len(OTHER_ARMS) + 8, arms
 
     def arm(N, B):
         params = ctypes.byref(cuda_mpc._params(T.SE3MPCConfig(prediction_horizon=N), B, 8, True))
